@@ -1,0 +1,62 @@
+"""The CUDA forward rasterizer against its plain version, on the card.
+
+Marked `cuda`: they need an NVIDIA GPU and nvcc, and skip elsewhere (a
+CUDA kernel has no CPU mode). Run them on the card with
+`python -m pytest tests/test_torch_cuda.py -m cuda -q`; chip_smoke.py
+makes the same checks at the main path's shapes.
+
+Tolerances: rgba atol 1e-3 and softmax (sum, max) rtol 1e-4 (the kernel
+sums faces in another order); hard-mode face ids and depths equal on
+>= 99.9% of covered pixels (the per-pair arithmetic is the plain
+version's, rounding for rounding)."""
+
+import numpy as np
+import pytest
+import torch
+
+from torch_parity import random_scene
+from umr_tpu_torch.ops import raster_kernel
+from umr_tpu_torch.ops.rasterize import soft_rasterize
+
+pytestmark = pytest.mark.cuda
+
+KW = dict(image_size=64, sigma_val=3e-3, gamma_val=1e-2, dist_eps=1e-4,
+          background_color=(0.1, 0.2, 0.3))
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("mode", ["softmax", "mask_only", "hard"])
+def test_kernel_matches_plain(cuda, mode):
+    faces, tex = random_scene(np.random.RandomState(1), B=2, F=40, T2=9)
+    fv = torch.as_tensor(faces, device=cuda)
+    tx = torch.as_tensor(tex, device=cuda)
+    kw = dict(KW, aggr_func_rgb="hard" if mode == "hard" else "softmax",
+              mask_only=mode == "mask_only")
+    before = raster_kernel.LAUNCHES
+    # a cap above the scene's needs: the plain version has no bins to cap
+    out = raster_kernel.soft_rasterize_fwd(fv, tx, mf_cap=64, **kw)
+    torch.cuda.synchronize()
+    assert raster_kernel.LAUNCHES == before + 1
+    ref = soft_rasterize(fv, tx, **kw)
+    torch.testing.assert_close(out.rgba, ref.rgba, atol=1e-3, rtol=0)
+    if mode == "hard":
+        cov = ref.aggr[:, 1] >= 0
+        same = ((out.aggr[:, 1] == ref.aggr[:, 1])
+                & (out.aggr[:, 0] == ref.aggr[:, 0]))
+        assert same[cov].float().mean() >= 0.999
+    else:
+        torch.testing.assert_close(out.aggr, ref.aggr, rtol=1e-4, atol=0)
+
+
+def test_need_p2f_raises_on_cuda(cuda):
+    faces, tex = random_scene(np.random.RandomState(0))
+    with pytest.raises(NotImplementedError):
+        raster_kernel.soft_rasterize_fwd(
+            torch.as_tensor(faces, device=cuda),
+            torch.as_tensor(tex, device=cuda), need_p2f=True, **KW)

@@ -1,0 +1,109 @@
+"""The port's copies of the JAX package's host-side numpy code are pinned
+equal to their originals: Config, the mesh template, synthetic batches,
+the .obj export and the demo's image preprocessing. The CLI parses the
+JAX package's flag names.
+
+Tolerances: exactly equal, except the demo's resize (torch bilinear
+against cv2's, both with half-pixel centres): atol 1e-6."""
+
+import dataclasses
+
+import numpy as np
+import pytest
+
+from umr_tpu import config as jconfig
+from umr_tpu.data.synthetic import synthetic_batch as jax_batch
+from umr_tpu.mesh import build_template as jax_template
+from umr_tpu.utils import image as jimage
+from umr_tpu.utils.obj_io import save_obj as jax_save_obj
+from umr_tpu_torch import config as tconfig
+from umr_tpu_torch.cli import parse_config
+from umr_tpu_torch.data import synthetic_batch
+from umr_tpu_torch.experiments import demo
+from umr_tpu_torch.mesh import build_template
+from umr_tpu_torch.obj_io import save_obj
+
+
+def test_config_fields_and_defaults_match_jax():
+    jf = [(f.name, f.type, f.default) for f in dataclasses.fields(
+        jconfig.Config)]
+    tf = [(f.name, f.type, f.default) for f in dataclasses.fields(
+        tconfig.Config)]
+    assert tf == jf
+
+
+@pytest.mark.parametrize("kw", [
+    dict(image_size=64), dict(img_size=128), dict(symmetric=False),
+    dict(workers=3), dict(only_mean_sym=True), dict(dataset="pascal"),
+])
+def test_config_sync_and_validate_match_jax(kw):
+    j, t = jconfig.Config(**kw), tconfig.Config(**kw)
+    assert (dataclasses.asdict(t.sync_image_size())
+            == dataclasses.asdict(j.sync_image_size()))
+    outcomes = []
+    for c in (j, t):
+        try:
+            c.validate()
+            outcomes.append(None)
+        except (NotImplementedError, ValueError) as e:
+            outcomes.append(type(e))
+    assert outcomes[0] == outcomes[1]
+
+
+def test_cli_takes_the_jax_flag_names():
+    cfg = parse_config(["--image_size=64", "--noanti_aliasing",
+                        "--num_hypo_cams", "2", "--model_path", "m.pth"],
+                       overrides=dict(batch_size=32))
+    assert (cfg.image_size, cfg.img_size, cfg.anti_aliasing,
+            cfg.num_hypo_cams, cfg.model_path, cfg.batch_size) == (
+        64, 64, False, 2, "m.pth", 32)
+    with pytest.raises(NotImplementedError):
+        parse_config(["--symmetric=false"])
+
+
+@pytest.mark.parametrize("subdivide,axis,tex_size", [(2, 1, 2), (3, 1, 6)])
+def test_template_matches_jax(subdivide, axis, tex_size):
+    j = jax_template(subdivide, axis, tex_size)
+    t = build_template(subdivide, axis, tex_size)
+    for f in dataclasses.fields(t):
+        a, b = getattr(t, f.name), getattr(j, f.name)
+        if isinstance(a, np.ndarray):
+            assert a.dtype == b.dtype, f.name
+            np.testing.assert_array_equal(a, b, err_msg=f.name)
+        else:
+            assert a == b, f.name
+    assert (t.num_output, t.num_tex_faces, t.uv_image_size()) == (
+        j.num_output, j.num_tex_faces, j.uv_image_size())
+
+
+def test_synthetic_batch_matches_jax():
+    j = jax_batch(np.random.RandomState(3), 3, 32, with_dt=False)
+    t = synthetic_batch(np.random.RandomState(3), 3, 32)
+    assert sorted(t) == sorted(j)
+    for k in j:
+        assert t[k].dtype == j[k].dtype, k
+        np.testing.assert_array_equal(t[k], j[k], err_msg=k)
+
+
+def test_save_obj_matches_jax(rng, tmp_path):
+    verts = rng.standard_normal((7, 3)).astype(np.float32)
+    faces = rng.randint(0, 7, (5, 3))
+    tex = rng.uniform(0, 1, (5, 9, 3)).astype(np.float32)
+    save_obj(str(tmp_path / "t" / "m.obj"), verts, faces, tex)
+    jax_save_obj(str(tmp_path / "j" / "m.obj"), verts, faces, tex)
+    for name in ("m.obj", "m.mtl", "m.png"):
+        assert ((tmp_path / "t" / name).read_bytes()
+                == (tmp_path / "j" / name).read_bytes()), name
+
+
+@pytest.mark.parametrize("shape,scale", [((40, 30, 3), 256 / 40),
+                                         ((300, 500, 3), 64 / 500)])
+def test_demo_resize_and_crop_match_jax(rng, shape, scale):
+    img = rng.uniform(0, 1, shape)
+    ref, _ = jimage.resize_img(img, scale)
+    out = demo.resize(img, scale)
+    assert out.shape == ref.shape
+    np.testing.assert_allclose(out, ref, atol=1e-6)
+    for bbox in ([-5, -3, 20, 40], [3, 2, 10, 12]):
+        np.testing.assert_array_equal(demo.crop(img, bbox, 1.0),
+                                      jimage.crop(img, bbox, bgval=1.0))

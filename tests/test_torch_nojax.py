@@ -1,0 +1,70 @@
+"""The port runs with jax, flax, optax, orbax, absl and the JAX package
+umr_tpu unavailable, and no file of it (nor chip_smoke.py) imports them:
+the machine with the card has none of the first, and umr_tpu's __init__
+imports jax wherever jax is installed."""
+
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "absl", "umr_tpu")
+
+SCRIPT = r"""
+import os, sys, tempfile
+for m in %(blocked)r:
+    sys.modules[m] = None
+import numpy as np
+import torch
+torch.set_num_threads(2)
+import umr_tpu_torch
+from umr_tpu_torch.config import Config
+from umr_tpu_torch.data import synthetic_batch
+from umr_tpu_torch.experiments import demo, test_iou
+from umr_tpu_torch.mesh import build_template
+from umr_tpu_torch.models import MeshNet, init_weights
+
+t = build_template(2, 1, 2)
+m = init_weights(MeshNet(t, input_size=32, nz_feat=16, z_dim=8,
+                         num_hypo_cams=2), torch.Generator().manual_seed(0))
+path = os.path.join(tempfile.mkdtemp(), "pred_net.pth")
+torch.save(m.state_dict(), path)
+cfg = Config(image_size=32, subdivide=2, tex_size=2, num_hypo_cams=2,
+             nz_feat=16, z_dim=8, model_path=path).sync_image_size()
+batch = synthetic_batch(np.random.RandomState(0), 2, 32)
+iou = test_iou.run(cfg, dataloader=[batch], device="cpu")
+panel = demo.render_panels(test_iou.build_eval_model(cfg, t, "cpu"),
+                           batch["img"][0])
+assert panel.shape == (64, 96, 3) and np.isfinite(panel).all()
+loaded = [k for k, v in sys.modules.items()
+          if v is not None and k.split(".")[0] in %(blocked)r]
+assert not loaded, loaded
+print("SLICE_OK", iou)
+"""
+
+
+def test_slice_runs_without_jax():
+    env = {k: v for k, v in os.environ.items() if k != "JAX_PLATFORMS"}
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(ROOT)] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
+                       if p])
+    res = subprocess.run([sys.executable, "-c",
+                          SCRIPT % {"blocked": BLOCKED}],
+                         cwd=ROOT, env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert res.returncode == 0, res.stderr[-4000:]
+    assert "SLICE_OK" in res.stdout
+
+
+def test_no_file_of_the_port_imports_jax():
+    pat = re.compile(
+        r"^\s*(?:import|from)\s+(?:" + "|".join(BLOCKED) + r")(?:\.|\s|$)",
+        re.M)
+    files = sorted((ROOT / "umr_tpu_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    assert len(files) > 10
+    offenders = [str(f.relative_to(ROOT)) for f in files
+                 if pat.search(f.read_text())]
+    assert not offenders, offenders

@@ -1,0 +1,54 @@
+"""umr_tpu_torch — the PyTorch / CUDA (NVIDIA Hopper) port of umr_tpu.
+
+It imports torch and never jax, flax, optax, orbax, absl or the JAX
+package umr_tpu (whose __init__ imports jax where it is installed). The
+host-side numpy code the slice needs is copied, and tests pin each copy
+equal to its original.
+
+Port module -> JAX counterpart (umr_tpu/...):
+  config.py                  config.py::Config (without the absl bridge)
+  mesh.py                    mesh/ (icosphere, symmetry, uv, template;
+                             inference members only)
+  data.py                    data/synthetic.py::synthetic_batch (no EDT)
+  obj_io.py                  utils/obj_io.py::save_obj (surface textures)
+  ops/quaternion.py          ops/quaternion.py
+  ops/projection.py          ops/projection.py
+  ops/grid_sample.py         ops/grid_sample.py (F.grid_sample, align_corners)
+  ops/rasterize.py           ops/rasterize.py, forward, training subset;
+                             the CUDA kernel's plain version
+  ops/raster_bins.py         ops/rasterize_binned.py::_face_tile_cover,
+                             ops/raster_kernel.py::compute_raster_bins
+  csrc/raster_fwd.cu         ops/raster_kernel.py::_fwd_kernel (Pallas)
+  ops/raster_kernel.py       ops/raster_kernel.py::soft_rasterize_pallas
+                             (forward only; build + launch wrapper)
+  renderer/soft_renderer.py  renderer/soft_renderer.py
+  models/net_blocks.py       models/net_blocks.py
+  models/resnet.py           models/resnet.py
+  models/heads.py            models/heads.py (stage-2 heads)
+  models/mesh_net.py         models/mesh_net.py::MeshNet, symmetrize
+  models/reference_io.py     models/reference_io.py::build_key_map (data)
+  models/weights.py          models/weight_io.py (npz),
+                             training/checkpoints.py::load_pth
+  experiments/test_iou.py    experiments/test_iou.py
+  experiments/demo.py        experiments/demo.py
+  cli.py                     config.py::define_flags (argparse, same names)
+
+Parity traps the port reproduces:
+  * heads.py: the 1x1 `enc_conv1` for inputs under 64 px; CHW flatten
+    order of the encoder and texture features; VAE noise drawn at eval
+    too; the hypothesis drawn from log(p + 1e-9); the dead scale-head
+    flags (lr 1.0, bias 1.0 always).
+  * net_blocks.py: LeakyReLU 0.2 with BN, 0.1 without, 0.01 in the VAE
+    heads; bilinear 2x upsample with half-pixel centres
+    (F.interpolate align_corners=False), equal to jax.image.resize at
+    the borders too.
+  * resnet.py: max-pool padded with -inf.
+  * mesh_net.py: symmetrize mirrors the trailing num_sym vertices.
+  * BatchNorm: flax momentum 0.9 is torch's 0.1, eps 1e-5; eval uses the
+    running statistics.
+  * rasterizer: |det| <= 1e-10 faces are culled; hard-mode ties go to the
+    lowest face id; the per-tile cap and entry_cap truncate exactly as the
+    TPU kernel's binning does.
+"""
+
+__version__ = "0.1.0"

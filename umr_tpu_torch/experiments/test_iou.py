@@ -1,0 +1,108 @@
+"""Mask-IoU evaluation: render the predicted mesh at the predicted camera,
+alpha channel vs the ground-truth mask (port of
+umr_tpu/experiments/test_iou.py).
+
+  python -m umr_tpu_torch.experiments.test_iou --model_path <pth> ...
+
+run() needs a dataloader: the CUB loader of the JAX package imports its
+jax ops and is not ported yet.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..config import Config
+from ..mesh import build_template
+from ..models.mesh_net import MeshNet, symmetrize
+from ..models.weights import load_checkpoint
+from ..renderer import SoftRenderer
+
+RESNET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
+RESNET_STD = np.array([0.229, 0.224, 0.225], np.float32)
+
+
+def default_device():
+    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+
+
+def check_supported(cfg: Config):
+    """The port has the stage-2 model only: textured, multi-hypothesis."""
+    for k in ("use_texture", "pred_cam", "multiple_cam_hypo"):
+        if not getattr(cfg, k):
+            raise NotImplementedError(f"--{k}=False is not ported")
+    if cfg.az_ele_quat:
+        raise NotImplementedError("--az_ele_quat is not ported")
+
+
+def build_eval_model(cfg: Config, template, device=None):
+    """MeshNet-s2 with the weights of cfg.model_path, in eval mode."""
+    check_supported(cfg)
+    model = MeshNet(template, input_size=cfg.image_size, nz_feat=cfg.nz_feat,
+                    z_dim=cfg.z_dim, num_hypo_cams=cfg.num_hypo_cams)
+    load_checkpoint(model, cfg.model_path)
+    return model.to(device or default_device()).eval()
+
+
+def prepare_batch(batch):
+    """Host batch dict -> (normalised input images, masks), numpy."""
+    imgs = batch["img"].astype(np.float32)
+    return (imgs - RESNET_MEAN) / RESNET_STD, batch["mask"].astype(np.float32)
+
+
+@torch.no_grad()
+def predict_masks(model, renderer, faces, batch_img, eps=None,
+                  sample_inds=None, generator=None):
+    """batch_img [B,H,W,3] (normalised) -> (rendered alpha [B,H,W], the
+    model's outputs)."""
+    out = model(batch_img, eps=eps, sample_inds=sample_inds,
+                generator=generator)
+    verts = (model.get_mean_shape()[None]
+             + symmetrize(out["delta_v"], model.template))
+    rendered = renderer.render(verts, faces, out["cam"])
+    return rendered.rgba[..., 3], out
+
+
+def run(cfg: Config, dataloader=None, device=None):
+    """Mean mask IoU over the batches of `dataloader` (dicts with 'img'
+    [B,H,W,3] in [0,1] and 'mask' [B,H,W])."""
+    if dataloader is None:
+        raise NotImplementedError(
+            "pass a dataloader: the CUB loader is not ported yet")
+    if cfg.visualize:
+        raise NotImplementedError("--visualize is not ported")
+    device = torch.device(device) if device else default_device()
+    template = build_template(cfg.subdivide, cfg.axis, cfg.tex_size)
+    model = build_eval_model(cfg, template, device)
+    renderer = SoftRenderer(image_size=cfg.image_size, render_type="softmax",
+                            anti_aliasing=cfg.anti_aliasing)
+    faces = torch.as_tensor(template.faces, device=device)
+    generator = torch.Generator(device)
+    ious = []
+    for batch in dataloader:
+        input_img, mask_gt = prepare_batch(batch)
+        # every batch draws with the same seed, as the JAX loop reuses its key
+        generator.manual_seed(cfg.seed)
+        pred_mask, _ = predict_masks(
+            model, renderer, faces,
+            torch.as_tensor(input_img, device=device), generator=generator)
+        mask_pred = pred_mask.cpu().numpy().reshape(pred_mask.shape[0], -1)
+        mask_gt = mask_gt.reshape(mask_gt.shape[0], -1)
+        inter = (mask_gt * mask_pred).sum(1)
+        union = (mask_gt + mask_pred - mask_gt * mask_pred).sum(1)
+        ious.append(inter / union)
+    iou = float(np.concatenate(ious).mean())
+    print("Average mask IoU: {:.4f}.".format(iou))
+    return iou
+
+
+def main(argv=None):
+    from ..cli import parse_config
+
+    run(parse_config(argv, overrides=dict(
+        split="test", use_scops=False, batch_size=32, is_train=False)))
+
+
+if __name__ == "__main__":
+    main()

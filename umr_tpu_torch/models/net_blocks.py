@@ -1,0 +1,67 @@
+"""Building blocks of the reference's nnutils/net_blocks.py, NCHW inside
+(port of umr_tpu/models/net_blocks.py).
+
+Module indices follow the reference's nn.Sequential layout, so state_dict
+keys are the reference's (e.g. `enc_fc.0.0.weight`, `enc_fc.0.1.running_mean`).
+LeakyReLU slopes: 0.2 after BN, 0.1 for fc layers without BN, 0.2 for
+convs. BatchNorm eps 1e-5, momentum 0.1 (flax's 0.9).
+"""
+
+from __future__ import annotations
+
+import torch.nn as nn
+
+
+def fc(in_features, out_features, use_bn=True):
+    """Linear [+ BatchNorm1d] + LeakyReLU."""
+    if use_bn:
+        return nn.Sequential(nn.Linear(in_features, out_features),
+                             nn.BatchNorm1d(out_features, eps=1e-5,
+                                            momentum=0.1),
+                             nn.LeakyReLU(0.2))
+    return nn.Sequential(nn.Linear(in_features, out_features),
+                         nn.LeakyReLU(0.1))
+
+
+def fc_stack(in_features, out_features, nlayers, use_bn=True):
+    return nn.Sequential(*[
+        fc(in_features if i == 0 else out_features, out_features, use_bn)
+        for i in range(nlayers)
+    ])
+
+
+def conv2d(in_planes, out_planes, kernel_size=3, stride=1, use_bn=True):
+    """Conv (padding (k-1)//2) [+ BatchNorm2d] + LeakyReLU(0.2)."""
+    layers = [nn.Conv2d(in_planes, out_planes, kernel_size, stride,
+                        (kernel_size - 1) // 2, bias=True)]
+    if use_bn:
+        layers.append(nn.BatchNorm2d(out_planes, eps=1e-5, momentum=0.1))
+    layers.append(nn.LeakyReLU(0.2))
+    return nn.Sequential(*layers)
+
+
+def upconv2d(in_planes, out_planes, mode="bilinear"):
+    """2x upsample (half-pixel centres) + reflection pad + 3x3 valid conv +
+    LeakyReLU(0.2)."""
+    return nn.Sequential(
+        nn.Upsample(scale_factor=2, mode=mode, align_corners=False),
+        nn.ReflectionPad2d(1),
+        nn.Conv2d(in_planes, out_planes, 3, 1, 0),
+        nn.LeakyReLU(0.2),
+    )
+
+
+def decoder2d(nlayers, nc_input, nc_final, nc_min=8, use_bn=True,
+              upconv_mode="bilinear"):
+    """nlayers of (upconv + conv-bn block), halving channels down to
+    nc_min, then a final 3x3 conv to nc_final."""
+    layers = []
+    nc_output = nc_input
+    for _ in range(nlayers):
+        nc_in = nc_output
+        if nc_output // 2 >= nc_min:
+            nc_output = nc_output // 2
+        layers.append(upconv2d(nc_in, nc_output, upconv_mode))
+        layers.append(conv2d(nc_output, nc_output, use_bn=use_bn))
+    layers.append(nn.Conv2d(nc_output, nc_final, 3, 1, 1))
+    return nn.Sequential(*layers)

@@ -1,0 +1,91 @@
+"""Weights into the port: flax-path-flattened arrays (what the JAX
+package's checkpoints.save_pth writes, and the committed ResNet-18 npz
+files) mapped to torch state_dict keys through models/reference_io.py.
+Ports umr_tpu/models/weight_io.py (npz load) and
+umr_tpu/training/checkpoints.py::load_pth.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .reference_io import build_key_map, resnet_maps, to_torch_layout
+
+# batch-shaped buffers of the reference's checkpoints, not in the port's state
+_REFERENCE_ONLY = ("texture_predictor.uv_sampler", "noise")
+
+
+def _maps(stage=2, num_cams=8, n_upconv=5):
+    pm, sm, bm, tm = build_key_map(stage, num_cams, n_upconv)
+    return pm + sm + bm + tm
+
+
+def state_dict_from_flax(flat, num_cams=8, n_upconv=5):
+    """{'encoder/resnet/conv1/kernel': array, ..., 'mean_v': array} ->
+    {torch_key: tensor} for every mapped key present in `flat`."""
+    sd = {}
+    for path, tkey, tf in _maps(2, num_cams, n_upconv):
+        key = "/".join(path)
+        if key in flat:
+            arr = to_torch_layout(np.asarray(flat[key], np.float32), tf)
+            sd[tkey] = torch.tensor(arr)
+    return sd
+
+
+def load_resnet18_npz(params_path, stats_path=None):
+    """The committed trunk weights (weights/resnet18_params.npz and its
+    *_stats.npz, flax paths without the 'encoder/resnet/' prefix) ->
+    state_dict entries under `encoder.resnet_conv.resnet.`."""
+    flat = dict(np.load(params_path))
+    if stats_path is not None:
+        flat.update(np.load(stats_path))
+    pm, sm = resnet_maps((), "encoder.resnet_conv.resnet")
+    sd = {}
+    for path, tkey, tf in pm + sm:
+        key = "/".join(path)
+        if key not in flat:
+            raise KeyError(f"{params_path}: missing {key}")
+        arr = to_torch_layout(np.asarray(flat[key], np.float32), tf)
+        sd[tkey] = torch.tensor(arr)
+    return sd
+
+
+def load_into(model, sd, allow_missing=()):
+    """Load a partial state_dict, shape-checked; raise on keys the model
+    does not have, and on model keys absent from `sd` unless they match
+    an `allow_missing` suffix (BatchNorm's num_batches_tracked always)."""
+    own = model.state_dict()
+    unknown = sorted(set(sd) - set(own))
+    if unknown:
+        raise KeyError(f"keys not in the model: {unknown[:5]}")
+    for k, v in sd.items():
+        if tuple(v.shape) != tuple(own[k].shape):
+            raise ValueError(f"{k}: shape {tuple(v.shape)} vs model "
+                             f"{tuple(own[k].shape)}")
+    missing = [k for k in own if k not in sd
+               and not k.endswith(("num_batches_tracked", *allow_missing))]
+    if missing:
+        raise KeyError(f"checkpoint lacks {len(missing)} keys: {missing[:5]}")
+    model.load_state_dict(sd, strict=False)
+    return model
+
+
+def load_checkpoint(model, path):
+    """Load a .pth into `model`: either flax-path keys (the JAX package's
+    trainer output, mapped by state_dict_from_flax) or torch keys (the
+    port's own or a reference pred_net_*.pth)."""
+    raw = torch.load(path, map_location="cpu", weights_only=True)
+    if any("/" in k for k in raw):
+        flat = {k: v.numpy() for k, v in raw.items()
+                if not k.startswith("_meta/")}
+        num_cams = len(model.cam_predictor.camera_predictor)
+        n_up = sum(1 for k in flat
+                   if k.startswith("texture_predictor/decoder/UpConvBlock_")
+                   and k.endswith("/kernel"))
+        sd = state_dict_from_flax(flat, num_cams, n_up)
+        # a flax export carries params, BN stats and mean_v, not buffers
+        return load_into(model, sd, allow_missing=("cam_biases",))
+    sd = {k: v for k, v in raw.items()
+          if k not in _REFERENCE_ONLY and ".resnet.fc." not in k}
+    return load_into(model, sd)
