@@ -1,8 +1,10 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU (H100): builds the CUDA
-rasterizer from csrc/, holds it against its plain version at the main
-path's shapes, drives the inference slice (test_iou.run at full s2 width,
-batch 32; demo.render_panels), checks that the slice went through the
-kernel, and times kernel against plain version.
+rasterizer kernels (forward and backward) from csrc/, holds each against
+its plain version at the main paths' shapes and against the golden
+oracle, drives the inference slice (test_iou.run at full s2 width, batch
+32; demo.render_panels) and the training slice (train_s2.run at full s2
+width, batch 16, 6 steps), checks that each path went through the
+kernels, and times kernels, plain versions and the training step.
 
   python3 chip_smoke.py
 
@@ -27,6 +29,8 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 KERNEL_SRC = "umr_tpu_torch/csrc/raster_fwd.cu"
 TPU_KERNEL = "umr_tpu/ops/raster_kernel.py:299"   # _fwd_kernel
+BWD_SRC = "umr_tpu_torch/csrc/raster_bwd.cu"
+BWD_TPU_KERNEL = "umr_tpu/ops/raster_kernel_bwd.py:46"   # _bwd_kernel
 
 # the main path's shapes: s2 at 256^2 (512^2 anti-aliased renders),
 # subdivide 3 (F=1280), test_iou at batch 32
@@ -36,10 +40,53 @@ SUBDIVIDE = 3
 BATCH = 32
 N_BATCHES = 4
 SCENE_B = 4
+# the training slice: bench.py's s2 configuration (batch 16, K=8, tex 6)
+TRAIN_BATCH = 16
+TRAIN_STEPS = 6          # train_s2.run's steps (the main path)
+TIMED_STEPS = 5          # then 1 warm-up and these, timed with CUDA events
+FOLD_SLICE = 8           # images of the fold (128) and of the merged pass
+                         # (48) the plain backward takes
+TRACE_STEPS = 3          # steps traced for the step's split
 
 RGBA_ATOL = 1e-3      # kernel vs plain: reductions run in another order
 AGGR_RTOL = 1e-4      # softmax (sum, max)
 HARD_SHARE = 0.999    # face ids and depths equal on covered pixels
+# backward kernel vs plain: the kernel sums each face's pixels per warp,
+# per block (shared-memory atomics) and over tiles (global atomics), in an
+# order that changes run to run; the plain version per face chunk. Each
+# lane group (vertex x, y; vertex z; texels) is held to its own scale, as
+# tests/test_torch_cuda.py holds it: |diff| <= BWD_RTOL |plain| + BWD_ATOL
+# x the largest |plain| of the group. Reading (NVIDIA H100 80GB HBM3,
+# 700 W): 7.5e-7 of the largest vertex gradient at worst, over all lanes
+# at once
+BWD_RTOL, BWD_ATOL = 1e-4, 1e-5
+GOLDEN_BWD_REL = 1e-3  # as tests/test_kernel_interpret.py holds Pallas
+
+# the bound: H100 SXM datasheet peaks, and the operations that this run's
+# (pixel, binned face) pairs make the kernels do, counted from the source
+# per branch (one per add, subtract, multiply, divide, compare, min, max,
+# select, floor, conversion, exponential or atomic add; address
+# arithmetic, the per-pixel set-up and write-out, the forward's rescale of
+# its running softmax sums and the backward's warp reductions left out)
+PEAK_FLOPS = 67e12     # fp32, outside the tensor cores
+PEAK_BYTES = 3.35e12   # HBM3
+OPS_BOX = 4        # every binned slot: the bbox test (raster_common.cuh:120)
+OPS_DIST = 134     # in the bbox: barycentrics 12, three edges' foot points
+                   # 99, inside test 6, nearest edge 13, squared distance
+                   # and threshold test 4 (:123-186)
+OPS_FRAG = 26      # past the threshold: sign and sigmoid 7, clipped
+                   # barycentrics and depth 19 (:187-213)
+OPS_TEXEL = 18     # the texel index (:214-220) where the pass reads texels
+OPS_FOOT = 15      # backward: the foot point's weights (:192-201)
+OPS_FWD_PASS = 4   # forward, past the threshold: alpha 2, depth test 2
+OPS_FWD_Z = 14     # forward, depth in [near, far]: softmax weight and sum
+                   # 8, colour sums 6 (raster_fwd.cu:117-135)
+OPS_BWD_PASS = 2   # backward, past the threshold: depth gate
+OPS_BWD_Z = 30     # backward, depth in range: alpha term and the x, y
+                   # chain (raster_bwd.cu:128-162)
+OPS_BWD_SOFT = 6   # its softmax weight, where texels or depths get grads
+OPS_BWD_TEX = 7    # its texel lanes (:134-139)
+OPS_BWD_ZLANE = 26  # its colour term and z lanes (:141-154)
 
 
 def phase(name):
@@ -105,6 +152,143 @@ def compare(name, out, ref, hard):
     return err
 
 
+def pair_counts(fv, bins, S, cap, sigma_val, dist_eps, chunk=1 << 14):
+    """Of one render's binned (pixel, face) slots, how many reach each
+    branch of the kernels' per-pair code on this run's data, found with
+    the plain version's pair arithmetic: (slots of kept faces, pairs in
+    the face's margin-expanded bbox, pairs past the distance threshold,
+    and of those the pairs with depth in [near, far])."""
+    from umr_tpu_torch.ops.rasterize import (_face_info, pair_math,
+                                             threshold_of)
+
+    al_fids, astarts = bins
+    B, F = fv.shape[:2]
+    TX = S // 32
+    T = TX * TX
+    n = torch.diff(astarts.long(), dim=1).clamp(max=cap)          # [B,T]
+    pos = torch.arange(al_fids.shape[1], device=fv.device)
+    tile = torch.searchsorted(astarts[:, 1:].long().contiguous(),
+                              pos[None].expand(B, -1).contiguous(),
+                              right=True)
+    tc = tile.clamp(max=T - 1)
+    keep = ((al_fids < F) & (tile < T)
+            & (pos[None] - astarts.long().gather(1, tc) < n.gather(1, tc)))
+    bi, ei = torch.nonzero(keep, as_tuple=True)
+    faces = fv[bi, al_fids[bi, ei].long()]                        # [N,3,3]
+    tiles = tile[bi, ei]
+    thr, margin = threshold_of(sigma_val, dist_eps)
+    lane = torch.arange(32 * 32, device=fv.device)
+    counts = torch.zeros(4, dtype=torch.float64, device=fv.device)
+    for c0 in range(0, faces.shape[0], chunk):
+        f = faces[c0:c0 + chunk][None]                            # [1,E,3,3]
+        t = tiles[c0:c0 + chunk, None]
+        ch = _face_info(f[..., 0], f[..., 1], f[..., 2])
+        ch["ok"] = ch.pop("nondegen")
+        col = (t % TX) * 32 + lane % 32
+        row = (t // TX) * 32 + lane // 32
+        xp = ((2.0 * col + 1.0 - S) / S)[None]
+        yp = ((2.0 * (S - 1 - row) + 1.0 - S) / S)[None]
+        maxx, minx, maxy, miny = ch["bbox"]
+        box = ~((xp > maxx + margin) | (xp < minx - margin)
+                | (yp > maxy + margin) | (yp < miny - margin)) & ch["ok"]
+        pm = pair_math(ch, xp, yp, thr, margin, 1.0 / sigma_val)
+        counts += torch.stack([ch["ok"].sum() * lane.numel(), box.sum(),
+                               pm["valid"].sum(),
+                               (pm["valid"] & pm["z_ok"]).sum()]).double()
+    return [int(c) for c in counts.tolist()]
+
+
+def bound(ops, nbytes):
+    """(bound ms, what bounds it): the larger of the two rooflines."""
+    t_ops, t_bytes = ops / PEAK_FLOPS, nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def lanes(opts):
+    """(texel lanes, z lanes) the backward computes under opts, as
+    umr_raster_bwd decides them."""
+    mask_only = opts.get("mask_only", False)
+    return (opts.get("tex_grads", True) and not mask_only,
+            not (mask_only or opts.get("rgb_geom_detach", False)))
+
+
+def raster_bound(counts, fv, tex, bins, S, opts=None):
+    """(bound ms, bound_by) of one forward render (opts None) or of its
+    backward under opts, from its pair_counts."""
+    slots, box, passed, in_depth = counts
+    ops = slots * OPS_BOX + box * OPS_DIST + passed * OPS_FRAG
+    inputs = 4 * (fv.numel() + tex.numel() + bins[0].numel()
+                  + bins[1].numel())
+    img = 4 * fv.shape[0] * S * S * (4 + 2)            # rgba, aggr
+    if opts is None:
+        ops += passed * (OPS_TEXEL + OPS_FWD_PASS) + in_depth * OPS_FWD_Z
+        return bound(ops, inputs + img)
+    want_tex, want_z = lanes(opts)
+    rgb = want_tex or want_z
+    ops += (passed * (OPS_FOOT + OPS_BWD_PASS + rgb * OPS_TEXEL)
+            + in_depth * (OPS_BWD_Z + rgb * OPS_BWD_SOFT
+                          + want_tex * OPS_BWD_TEX + want_z * OPS_BWD_ZLANE))
+    # reads the forward's outputs and g_rgba, writes the gradients
+    return bound(ops, inputs + img + 4 * fv.shape[0] * S * S * 4
+                 + 4 * (fv.numel() + tex.numel()))
+
+
+def grad_check(name, got, want, opts):
+    """The backward kernel's (grad faces, grad texels) against the plain
+    version's, per lane group against the group's own scale; a group the
+    mode does not compute is zero on both sides. Returns (max |diff|,
+    max |diff| / the group's scale) over the groups."""
+    want_tex, want_z = lanes(opts)
+    groups = (("vertex x, y", got[0][..., :2], want[0][..., :2], True),
+              ("vertex z", got[0][..., 2], want[0][..., 2], want_z),
+              ("texels", got[1], want[1], want_tex))
+    worst = (0.0, 0.0)
+    msgs, bad = [], []
+    for label, g, w, live in groups:
+        if not live:
+            ok = g.abs().max().item() == 0 == w.abs().max().item()
+            msgs.append(f"{label} zero (not computed in this mode)")
+            if not ok:
+                bad.append(label)
+            continue
+        scale = w.abs().max().item()
+        diff = (g - w).abs()
+        err = diff.max().item()
+        excess = (diff / (BWD_RTOL * w.abs() + BWD_ATOL * scale)).max().item()
+        msgs.append(f"{label} max |diff| {err:.3e} of {scale:.3e} "
+                    f"({err / max(scale, 1e-30):.2e}; {excess:.3f} of the "
+                    "limit)")
+        if not (scale > 0 and excess <= 1.0):
+            bad.append(label)
+        worst = (max(worst[0], err), max(worst[1], err / max(scale, 1e-30)))
+    msg = f"{name}: " + "; ".join(msgs)
+    print(msg, flush=True)
+    assert not bad, f"{msg} -- outside the limit: {bad}"
+    return worst
+
+
+def kernel_grads(raster_kernel, fv, tex, g, **kw):
+    """Forward + backward kernel through the autograd Function."""
+    fv = fv.detach().clone().requires_grad_()
+    tex = tex.detach().clone().requires_grad_()
+    out = raster_kernel.soft_rasterize_fwd(fv, tex, **kw)
+    (out.rgba * g).sum().backward()
+    torch.cuda.synchronize()
+    return fv.grad, tex.grad
+
+
+def plain_grads(fv, tex, g, kw, opts):
+    from umr_tpu_torch.ops.rasterize import soft_rasterize
+    from umr_tpu_torch.ops.rasterize_bwd import soft_rasterize_bwd
+
+    bkw = {k: v for k, v in kw.items()
+           if k in ("image_size", "sigma_val", "dist_eps", "gamma_val")}
+    ref = soft_rasterize(fv, tex, mask_only=opts.get("mask_only", False),
+                         **kw)
+    return soft_rasterize_bwd(fv, tex, ref.rgba, ref.aggr, g, **opts, **bkw)
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device visible")
@@ -113,12 +297,15 @@ def main():
     from umr_tpu_torch.config import Config
     from umr_tpu_torch.data import synthetic_batch
     from umr_tpu_torch.experiments import demo, test_iou
-    from umr_tpu_torch.experiments.profile_slice import random_model
+    from umr_tpu_torch.experiments.profile_slice import (
+        busy_us, device_ops, launch_times, random_model, range_split,
+        trace_events)
     from umr_tpu_torch.mesh import build_template
     from umr_tpu_torch.models import symmetrize
     from umr_tpu_torch.ops import raster_kernel
     from umr_tpu_torch.ops.raster_bins import compute_raster_bins
     from umr_tpu_torch.ops.rasterize import soft_rasterize
+    from umr_tpu_torch.ops.rasterize_bwd import soft_rasterize_bwd
     from umr_tpu_torch.renderer import (SoftRenderer, apply_lighting,
                                         surface_normals)
 
@@ -143,7 +330,8 @@ def main():
     phase("2. build")
     t0 = time.perf_counter()
     raster_kernel.build()
-    print(f"built {KERNEL_SRC} in {time.perf_counter() - t0:.1f} s")
+    print(f"built {KERNEL_SRC} and {BWD_SRC} in "
+          f"{time.perf_counter() - t0:.1f} s")
     for line in raster_kernel.BUILD_LOG.splitlines():
         if "registers" in line or "spill" in line:
             print("  ptxas:", line.strip())
@@ -299,15 +487,348 @@ def main():
         hkw, 3)
     max_err = max(max_err, err)
 
+    with torch.no_grad():
+        iou_bins = compute_raster_bins(fv, S, raster_kernel.TILE_SIZE,
+                                       rend.sigma_val, rend.dist_eps, cap,
+                                       raster_kernel.MAX_COVER)
+        ms_kernel, _ = cuda_time(lambda: raster_kernel.soft_rasterize_fwd(
+            fv, None, mf_cap=cap, bins=iou_bins, **rkw), 20)
+
+    def counts_of(fv_, bins_):
+        return pair_counts(fv_, bins_, S, cap, rend.sigma_val, rend.dist_eps)
+
+    iou_counts = counts_of(fv, iou_bins)
+    fwd_bound, fwd_by = raster_bound(
+        iou_counts, fv, torch.ones_like(fv[:, :, :1]), iou_bins, S)
+    print(f"test_iou render: kernel alone {ms_kernel:.3f} ms; bound "
+          f"{fwd_bound:.3f} ms ({fwd_by}; slots, pairs in bbox, past the "
+          f"threshold, in depth: {iou_counts}) [{smi}]")
+
+    def fullest_tiles(fv_):
+        """Per image, the faces binned to its fullest tile, uncapped."""
+        full = compute_raster_bins(
+            fv_, S, raster_kernel.TILE_SIZE, rend.sigma_val, rend.dist_eps,
+            F, raster_kernel.MAX_COVER, F * 16 + 8 * (S // 32) ** 2)
+        return torch.diff(full[1], dim=1).amax(dim=1)
+
+    def check_cap(fv_, label):
+        """The plain version renders every face: it meets the kernel only
+        where no tile overflows the kernel's cap."""
+        most = int(fullest_tiles(fv_).max())
+        assert most <= cap, f"{label}: a tile holds {most} > cap {cap}"
+        return most
+
+    phase("6. backward kernel vs plain version and the golden backward")
+    bwd_err, bwd_rel = 0.0, 0.0
+    modes = (("default", {}), ("rgb_geom_detach", {"rgb_geom_detach": True}),
+             ("tex_grads=False", {"tex_grads": False}),
+             ("mask_only", {"mask_only": True}))
+    for i, (label, opts) in enumerate(modes):
+        fv_s, tex_s = sphere_scenes(rend, template, SCENE_B, 36, 10 + i, dev)
+        most = check_cap(fv_s, label)
+        g = torch.randn((SCENE_B, S, S, 4), device=dev,
+                        generator=torch.Generator(dev).manual_seed(20 + i))
+        kf, kt = kernel_grads(raster_kernel, fv_s, tex_s, g, mf_cap=cap,
+                              **opts, **rkw)
+        pf, pt = plain_grads(fv_s, tex_s, g, rkw, opts)
+        e, r = grad_check(f"{label} B={SCENE_B} S={S} T2=36 (fullest tile "
+                          f"{most})", (kf, kt), (pf, pt), opts)
+        bwd_err, bwd_rel = max(bwd_err, e), max(bwd_rel, r)
+
+    from golden_raster import golden_soft_rasterize_backward
+    g_rgba, _, g_aggr = golden_soft_rasterize(gf, gt, **gkw)
+    gg = np.random.RandomState(1).standard_normal(
+        (2, 32, 32, 4)).astype(np.float32)
+    bkw = {k: v for k, v in gkw.items() if k != "background_color"}
+    ggf, ggt = golden_soft_rasterize_backward(gf, gt, g_rgba, g_aggr, gg,
+                                              **bkw)
+    kf, kt = kernel_grads(raster_kernel, torch.as_tensor(gf, device=dev),
+                          torch.as_tensor(gt, device=dev),
+                          torch.as_tensor(gg, device=dev), mf_cap=32, **gkw)
+    for name, got, want in (("grad faces", kf, ggf), ("grad texels", kt, ggt)):
+        scale = np.abs(want).max()
+        err = np.abs(got.cpu().numpy() - want).max()
+        msg = (f"golden backward {name}: max |diff| {err:.3e} of max |grad| "
+               f"{scale:.3e} ({err / scale:.2e} <= {GOLDEN_BWD_REL})")
+        print(msg, flush=True)
+        assert err <= GOLDEN_BWD_REL * scale, msg
+
+    phase("7. the training slice: train_s2.run (s2, batch 16, 256^2 with "
+          "512^2 AA renders, K=8, F=1280, T2=36)")
+    from umr_tpu_torch.experiments import train_s2
+    from umr_tpu_torch.losses.composite import PartMatchingLoss
+    from umr_tpu_torch.models import MeshNet, init_weights
+    from umr_tpu_torch.ops.grid_sample import sample_textures
+    from umr_tpu_torch.ops.quaternion import rotate_cam
+    from umr_tpu_torch.training.trainer import prepare_batch
+
+    tcfg = Config(batch_size=TRAIN_BATCH, image_size=IMAGE_SIZE,
+                  subdivide=SUBDIVIDE, tex_size=6, num_hypo_cams=8,
+                  num_iter=TRAIN_STEPS, print_freq=1).sync_image_size()
+    # the synthetic semantic template bench.py builds
+    srng = np.random.RandomState(0)
+    seg = srng.randint(0, 5, size=(128, 256)).astype(np.float32)
+    idx = srng.permutation(template.num_verts)
+    pvi = [idx[0:100], idx[100:250], idx[250:330], idx[330:480]]
+    tloader = [synthetic_batch(data_rng, TRAIN_BATCH, IMAGE_SIZE)
+               for _ in range(TRAIN_STEPS)]
+    assert all("dts_barrier" in b for b in tloader)
+    torch.cuda.reset_peak_memory_stats()
+    raster_kernel.LAUNCHES = raster_kernel.BWD_LAUNCHES = 0
+    t0 = time.perf_counter()
+    trainer = train_s2.run(tcfg, tloader, device=dev,
+                           semantic=(None, seg, pvi))
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    train_fwd, train_bwd = raster_kernel.LAUNCHES, raster_kernel.BWD_LAUNCHES
+    state = trainer.state
+    print(f"train_s2.run: {state.step} steps in {run_s:.2f} s incl. set-up; "
+          f"raster_fwd launches {train_fwd}, raster_bwd launches "
+          f"{train_bwd} (expected 3 and 2 per step)")
+    assert state.step == state.updates == TRAIN_STEPS
+    assert len(trainer.history) == TRAIN_STEPS
+    for sc in trainer.history:
+        assert all(math.isfinite(v) for v in sc.values()), sc
+    assert (train_fwd, train_bwd) == (3 * TRAIN_STEPS, 2 * TRAIN_STEPS)
+    fresh = init_weights(MeshNet(template, input_size=IMAGE_SIZE),
+                         torch.Generator().manual_seed(tcfg.seed))
+    moved = (state.model.shape_predictor.pred_layer.weight.detach().cpu()
+             - fresh.shape_predictor.pred_layer.weight).abs().max().item()
+    print(f"shape head moved by up to {moved:.3e} from its seeded init")
+    assert moved > 0
+    first, last = trainer.history[0], trainer.history[-1]
+    print("step 1 scalars: " + ", ".join(f"{k} {v:.4f}"
+                                          for k, v in first.items()))
+    print(f"step {TRAIN_STEPS} total_loss {last['total_loss']:.4f}")
+
+    times = []
+    raster_kernel.LAUNCHES = raster_kernel.BWD_LAUNCHES = 0
+    for i in range(TIMED_STEPS + 1):
+        db = prepare_batch(tloader[i % TRAIN_STEPS])
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, sc = trainer.step_fn(state, db)
+        end.record()
+        torch.cuda.synchronize()
+        assert math.isfinite(sc["total_loss"].item())
+        if i:                                        # step 0 is the warm-up
+            times.append(start.elapsed_time(end))
+    assert (raster_kernel.LAUNCHES, raster_kernel.BWD_LAUNCHES) == (
+        3 * (TIMED_STEPS + 1), 2 * (TIMED_STEPS + 1))
+    step_ms = float(np.median(times))
+    imgs_s = TRAIN_BATCH / (step_ms / 1e3)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"s2 training step, batch {TRAIN_BATCH}: median {step_ms:.2f} ms "
+          f"over {TIMED_STEPS} steps after 1 warm-up (min {min(times):.2f}, "
+          f"max {max(times):.2f}), {imgs_s:.1f} images/s; peak device "
+          f"memory {peak_gb:.2f} GB; TF32 off [{smi}]")
+
+    phase("8. kernels at the training step's shapes; the step's split")
+    model = state.model
+    B, K = TRAIN_BATCH, tcfg.num_hypo_cams
+    # the step's renderers (training/steps.py) at the step's inputs
+    tex_r = SoftRenderer(image_size=IMAGE_SIZE).ambient_light_only()
+    hard_r = SoftRenderer(image_size=IMAGE_SIZE, render_type="hard")
+    db = {k: torch.as_tensor(v, device=dev)
+          for k, v in prepare_batch(tloader[0]).items()}
+    part_loss = PartMatchingLoss.build(seg, template.uv_sampler,
+                                       template.num_sym_faces, tex_r,
+                                       tex_size=6, device=dev)
+    with torch.no_grad():
+        out = model(db["input_img"], generator=state.generator)
+        pred_vs = (symmetrize(model.mean_v, template)[None]
+                   + symmetrize(out["delta_v"], template))
+        cams_all = out["cam_hypotheses"].reshape(B * K, 7)
+        tex = sample_textures(out["tex_flow"], db["img"]).reshape(
+            B, F, 36, 3)
+        proj = out["cam"]
+        rnd = rotate_cam(proj, torch.randint(
+            0, 180, (B,), device=dev,
+            generator=torch.Generator(dev).manual_seed(3)))
+        fold_fv = tex_r.project_faces(pred_vs.repeat_interleave(K, 0), faces,
+                                      cams_all).contiguous()
+        fold_tex = tex.repeat_interleave(K, 0).contiguous()
+        fold_bins = compute_raster_bins(fold_fv, S, raster_kernel.TILE_SIZE,
+                                        rend.sigma_val, rend.dist_eps, cap,
+                                        raster_kernel.MAX_COVER)
+        groups = part_loss.texture_groups(B)
+        n_g = len(groups)
+        mrg_fv = tex_r.project_faces(
+            torch.cat([pred_vs] * (n_g + 1)), faces,
+            torch.cat([proj] * n_g + [rnd])).contiguous()
+        mrg_tex = torch.cat(groups + [tex]).contiguous()
+        # the merged pass's bins as the step builds them: the main view's
+        # (shared with pass 2) once per part group, then the unseen view's
+        main_bins = hard_r.compute_bins(pred_vs, faces, proj)
+        gan_bins = tex_r.compute_bins(pred_vs, faces, rnd)
+        mrg_bins = tuple(torch.cat([m] * n_g + [gb])
+                         for m, gb in zip(main_bins, gan_bins))
+
+    shapes = {}
+    for label, fv_t, tex_t, bins, opts in (
+            ("fold", fold_fv, fold_tex, fold_bins, {"rgb_geom_detach": True}),
+            ("merged", mrg_fv, mrg_tex, mrg_bins, {"tex_grads": False})):
+        per_img = fullest_tiles(fv_t)
+        most = int(per_img.max())
+        over = int((per_img > cap).sum())
+        n_img = fv_t.shape[0]
+        print(f"{label} render: {over} of {n_img} images have a tile over "
+              f"the cap of {cap} faces (fullest {most}); the kernels keep "
+              f"the first {cap} faces of such a tile, as the TPU kernel does")
+        with torch.no_grad():
+            ms_b, _ = cuda_time(lambda: compute_raster_bins(
+                fv_t, S, raster_kernel.TILE_SIZE, rend.sigma_val,
+                rend.dist_eps, cap, raster_kernel.MAX_COVER), 10)
+            ms_f, o = cuda_time(lambda: raster_kernel.soft_rasterize_fwd(
+                fv_t, tex_t, mf_cap=cap, bins=bins, **opts, **rkw), 10)
+            g = torch.randn(o.rgba.shape, device=dev,
+                            generator=torch.Generator(dev).manual_seed(5))
+            ms_g, _ = cuda_time(lambda: raster_kernel.raster_bwd(
+                fv_t, tex_t, bins, o.rgba, o.aggr, g, S, rend.sigma_val,
+                rend.dist_eps, rend.gamma_val, cap, **opts), 10)
+            del o, g
+        counts = counts_of(fv_t, bins)
+        fb = raster_bound(counts, fv_t, tex_t, bins, S)
+        bb = raster_bound(counts, fv_t, tex_t, bins, S, opts)
+        shapes[label] = dict(fwd_ms=ms_f, bins_ms=ms_b, bwd_ms=ms_g,
+                             fwd_bound=fb, bwd_bound=bb, over_cap=over,
+                             counts=counts)
+        print(f"{label} render, {n_img} images at {S}^2, T2=36 (fullest "
+              f"tile {most}; slots, pairs in bbox, past the threshold, in "
+              f"depth: {counts}): binning {ms_b:.3f} ms; forward kernel "
+              f"{ms_f:.3f} ms (bound {fb[0]:.3f} ms, {fb[1]}); backward "
+              f"kernel {ms_g:.3f} ms (bound {bb[0]:.3f} ms, {bb[1]}) [{smi}]")
+
+    # the plain backward is dense over all pairs: minutes at a whole pass,
+    # and it renders every face, so kernel and plain meet on FOLD_SLICE
+    # images of each pass whose tiles all fit the cap, spread over the
+    # pass (the merged pass: its part groups and its unseen view), the
+    # kernel on the pass's own bins
+    slices = {}
+    for label, fv_t, tex_t, bins, opts, seed in (
+            ("fold", fold_fv, fold_tex, fold_bins, {"rgb_geom_detach": True},
+             6),
+            ("merged", mrg_fv, mrg_tex, mrg_bins, {"tex_grads": False}, 7)):
+        ok = torch.nonzero(fullest_tiles(fv_t) <= cap)[:, 0]
+        assert len(ok) >= FOLD_SLICE, f"{label}: {len(ok)} images in the cap"
+        sel = ok[torch.linspace(0, len(ok) - 1, FOLD_SLICE,
+                                device=ok.device).round().long()]
+        sl_fv, sl_tex = fv_t[sel].contiguous(), tex_t[sel].contiguous()
+        sl_bins = tuple(b[sel].contiguous() for b in bins)
+        g = torch.randn((FOLD_SLICE, S, S, 4), device=dev,
+                        generator=torch.Generator(dev).manual_seed(seed))
+        kf, kt = kernel_grads(raster_kernel, sl_fv, sl_tex, g, mf_cap=cap,
+                              bins=sl_bins, **opts, **rkw)
+        pf, pt = plain_grads(sl_fv, sl_tex, g, rkw, opts)
+        name = (f"{label} slice: {FOLD_SLICE} images within the cap, on the "
+                f"pass's bins (predicted meshes, images {sel.tolist()})")
+        e, r = grad_check(name, (kf, kt), (pf, pt), opts)
+        bwd_err, bwd_rel = max(bwd_err, e), max(bwd_rel, r)
+        del kf, kt, pf, pt
+        with torch.no_grad():
+            o = raster_kernel.soft_rasterize_fwd(sl_fv, sl_tex, mf_cap=cap,
+                                                 bins=sl_bins, **opts, **rkw)
+            ms_k, _ = cuda_time(lambda: raster_kernel.raster_bwd(
+                sl_fv, sl_tex, sl_bins, o.rgba, o.aggr, g, S, rend.sigma_val,
+                rend.dist_eps, rend.gamma_val, cap, **opts), 20)
+            ref = soft_rasterize(sl_fv, sl_tex, **rkw)
+            ms_p, _ = cuda_time(lambda: soft_rasterize_bwd(
+                sl_fv, sl_tex, ref.rgba, ref.aggr, g, image_size=S,
+                sigma_val=rend.sigma_val, dist_eps=rend.dist_eps,
+                gamma_val=rend.gamma_val, **opts), 1)
+            del o, ref
+        sb = raster_bound(counts_of(sl_fv, sl_bins), sl_fv, sl_tex, sl_bins,
+                          S, opts)
+        slices[label] = dict(ms=ms_k, plain_ms=ms_p, bound=sb, max_abs=e,
+                             max_rel=r)
+        print(f"{label} slice: backward kernel {ms_k:.3f} ms, plain backward "
+              f"{ms_p:.1f} ms, bound {sb[0]:.3f} ms ({sb[1]}) [{smi}]")
+
+    # the step's split, from a trace of the step itself (after the timed
+    # steps: the profiler leaves host overhead on later launches): device
+    # time by the step's profiler ranges (training/steps.py), the
+    # rasterizer kernels by the images of their grid, and the device's
+    # idle share of the traced steps
+    state_box = [state]
+
+    def one_step():
+        state_box[0], _ = trainer.step_fn(state_box[0], prepare_batch(
+            tloader[0]))
+
+    events, wall_us = trace_events(one_step, TRACE_STEPS)
+    split = range_split(events, "s2.", TRACE_STEPS)
+    launch = launch_times(events)
+    raster_split, raster_seen = {}, [0, 0]
+    for e in events:
+        name_ = e.get("name", "")
+        if e.get("cat") == "kernel" and "raster_" in name_:
+            key = ("raster_fwd" if "raster_fwd" in name_ else "raster_bwd")
+            key += f" {e.get('args', {}).get('grid', [0, 0])[1]} images"
+            raster_split[key] = (raster_split.get(key, 0.0)
+                                 + float(e["dur"]) / TRACE_STEPS / 1e3)
+            raster_seen[0] += e.get("args", {}).get("correlation") in launch
+            raster_seen[1] += 1
+    # device busy time per step against the untraced step: the profiler
+    # slows the host, not the device
+    busy_ms = busy_us(device_ops(events)) / TRACE_STEPS / 1e3
+    traced_ms = wall_us / TRACE_STEPS / 1e3
+    copy_ms = {c: sum(d for _, _, d in device_ops(events, (c,)))
+               / TRACE_STEPS / 1e3 for c in ("gpu_memcpy", "gpu_memset")}
+    idle = 1.0 - busy_ms / step_ms
+    print(f"step split, device ms per step by profiler range ({TRACE_STEPS} "
+          "traced steps): " + ", ".join(
+              f"{k} {v:.2f}" for k, v in sorted(split.items()))
+          + f"; sum {sum(split.values()):.2f}; rasterizer kernels "
+          f"({raster_seen[0]} of {raster_seen[1]} with their launch call "
+          "in the trace): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in sorted(raster_split.items()))
+          + f"; copies {copy_ms['gpu_memcpy']:.2f}, memsets "
+          f"{copy_ms['gpu_memset']:.2f}; device busy {busy_ms:.2f} ms per "
+          "step, idle share "
+          f"{idle:.3f} of the untraced step's {step_ms:.2f} ms (traced "
+          f"steps {traced_ms:.2f} ms) [{smi}]")
+    assert split and busy_ms > 0, "the trace holds no device time"
+
     record = {"kernels": [{
         "name": "raster_fwd", "route": "cuda", "source": KERNEL_SRC,
-        "replaces": TPU_KERNEL, "launches": launches,
+        "replaces": TPU_KERNEL, "launches": train_fwd,
         "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": fwd_bound, "bound_by": fwd_by, "library_ms": None,
         "ms_includes_binning": True, "binning_ms": ms_bins,
+        "kernel_ms": ms_kernel, "inference_launches": launches,
         "demo_ms": ms_demo, "demo_binning_ms": ms_demo_bins,
         "demo_plain_ms": plain_ms_demo,
         "test_iou_batch_ms": lat,
         "iou": iou,
+        "test_iou_pair_counts": iou_counts,
+        "fold_ms": shapes["fold"]["fwd_ms"],
+        "fold_bound_ms": shapes["fold"]["fwd_bound"][0],
+        "merged_ms": shapes["merged"]["fwd_ms"],
+        "merged_bound_ms": shapes["merged"]["fwd_bound"][0],
+    }, {
+        "name": "raster_bwd", "route": "cuda", "source": BWD_SRC,
+        "replaces": BWD_TPU_KERNEL, "launches": train_bwd,
+        "max_abs_err": bwd_err, "max_rel_err": bwd_rel,
+        "ms": slices["fold"]["ms"], "plain_ms": slices["fold"]["plain_ms"],
+        "bound_ms": slices["fold"]["bound"][0],
+        "bound_by": slices["fold"]["bound"][1],
+        "library_ms": None, "images": FOLD_SLICE,
+        "merged_slice_ms": slices["merged"]["ms"],
+        "merged_slice_plain_ms": slices["merged"]["plain_ms"],
+        "merged_slice_bound_ms": slices["merged"]["bound"][0],
+        "merged_slice_max_rel_err": slices["merged"]["max_rel"],
+        "fold_ms": shapes["fold"]["bwd_ms"],
+        "fold_images_over_cap": shapes["fold"]["over_cap"],
+        "fold_bound_ms": shapes["fold"]["bwd_bound"][0],
+        "fold_pair_counts": shapes["fold"]["counts"],
+        "merged_ms": shapes["merged"]["bwd_ms"],
+        "merged_bound_ms": shapes["merged"]["bwd_bound"][0],
+        "merged_pair_counts": shapes["merged"]["counts"],
+        "train_step_ms": step_ms, "train_images_per_s": imgs_s,
+        "train_split_ms": split, "train_raster_ms": raster_split,
+        "train_busy_ms": busy_ms, "train_traced_ms": traced_ms,
+        "train_idle_share": idle, "train_copy_ms": copy_ms,
     }]}
     print(f"\n{smi}")
     print(json.dumps(record))

@@ -1,4 +1,5 @@
-"""The CUDA forward rasterizer against its plain version, on the card.
+"""The CUDA rasterizer kernels, forward and backward, against their plain
+versions, on the card.
 
 Marked `cuda`: they need an NVIDIA GPU and nvcc, and skip elsewhere (a
 CUDA kernel has no CPU mode). Run them on the card with
@@ -8,7 +9,9 @@ makes the same checks at the main path's shapes.
 Tolerances: rgba atol 1e-3 and softmax (sum, max) rtol 1e-4 (the kernel
 sums faces in another order); hard-mode face ids and depths equal on
 >= 99.9% of covered pixels (the per-pair arithmetic is the plain
-version's, rounding for rounding)."""
+version's, rounding for rounding). Backward: gradients within 1e-4
+relative plus 1e-5 of the largest gradient (the kernel sums pixels and
+tiles in another order, with atomics)."""
 
 import numpy as np
 import pytest
@@ -17,6 +20,7 @@ import torch
 from torch_parity import random_scene
 from umr_tpu_torch.ops import raster_kernel
 from umr_tpu_torch.ops.rasterize import soft_rasterize
+from umr_tpu_torch.ops.rasterize_bwd import soft_rasterize_bwd
 
 pytestmark = pytest.mark.cuda
 
@@ -60,3 +64,30 @@ def test_need_p2f_raises_on_cuda(cuda):
         raster_kernel.soft_rasterize_fwd(
             torch.as_tensor(faces, device=cuda),
             torch.as_tensor(tex, device=cuda), need_p2f=True, **KW)
+
+
+@pytest.mark.parametrize("opts", [
+    {}, {"rgb_geom_detach": True}, {"tex_grads": False}, {"mask_only": True}],
+    ids=["default", "rgb_geom_detach", "no_tex_grads", "mask_only"])
+def test_backward_kernel_matches_plain(cuda, opts):
+    rng = np.random.RandomState(2)
+    faces, tex = random_scene(rng, B=2, F=40, T2=9)
+    g = torch.as_tensor(rng.standard_normal((2, 64, 64, 4)).astype(
+        np.float32), device=cuda)
+    fv = torch.as_tensor(faces, device=cuda).requires_grad_()
+    tx = torch.as_tensor(tex, device=cuda).requires_grad_()
+    before = raster_kernel.BWD_LAUNCHES
+    out = raster_kernel.soft_rasterize_fwd(fv, tx, mf_cap=64, **opts, **KW)
+    (out.rgba * g).sum().backward()
+    torch.cuda.synchronize()
+    assert raster_kernel.BWD_LAUNCHES == before + 1
+    ref = soft_rasterize(fv.detach(), tx.detach(),
+                         mask_only=opts.get("mask_only", False), **KW)
+    bkw = {k: v for k, v in KW.items() if k != "background_color"}
+    gf, gt = soft_rasterize_bwd(fv.detach(), tx.detach(), ref.rgba, ref.aggr,
+                                g, **opts, **bkw)
+    for got, want in ((fv.grad, gf), (tx.grad, gt)):
+        scale = max(want.abs().max().item(), 1e-30)
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5 * scale)
+    if opts.get("tex_grads", True) and not opts.get("mask_only"):
+        assert gt.abs().max() > 0

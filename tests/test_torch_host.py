@@ -76,13 +76,20 @@ def test_template_matches_jax(subdivide, axis, tex_size):
         j.num_output, j.num_tex_faces, j.uv_image_size())
 
 
-def test_synthetic_batch_matches_jax():
-    j = jax_batch(np.random.RandomState(3), 3, 32, with_dt=False)
-    t = synthetic_batch(np.random.RandomState(3), 3, 32)
+@pytest.mark.parametrize("with_dt", [False, True])
+def test_synthetic_batch_matches_jax(with_dt):
+    """dts_barrier: scipy's EDT here, the JAX package's native C++ EDT
+    (umr_tpu.native.edt_barrier_batch) there; both exact EDTs, the
+    sigmoid taken in float64 here and float32 there: atol 1e-6."""
+    j = jax_batch(np.random.RandomState(3), 3, 32, with_dt=with_dt)
+    t = synthetic_batch(np.random.RandomState(3), 3, 32, with_dt=with_dt)
     assert sorted(t) == sorted(j)
     for k in j:
         assert t[k].dtype == j[k].dtype, k
-        np.testing.assert_array_equal(t[k], j[k], err_msg=k)
+        if k == "dts_barrier":
+            np.testing.assert_allclose(t[k], j[k], atol=1e-6, rtol=0)
+        else:
+            np.testing.assert_array_equal(t[k], j[k], err_msg=k)
 
 
 def test_save_obj_matches_jax(rng, tmp_path):

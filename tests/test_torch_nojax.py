@@ -1,7 +1,8 @@
-"""The port runs with jax, flax, optax, orbax, absl and the JAX package
-umr_tpu unavailable, and no file of it (nor chip_smoke.py) imports them:
-the machine with the card has none of the first, and umr_tpu's __init__
-imports jax wherever jax is installed."""
+"""The port (the inference slice and a training step) runs with jax,
+flax, optax, orbax, absl and the JAX package umr_tpu unavailable, and no
+file of it (nor chip_smoke.py) imports them: the machine with the card
+has none of the first, and umr_tpu's __init__ imports jax wherever jax is
+installed."""
 
 import os
 import re
@@ -38,6 +39,16 @@ iou = test_iou.run(cfg, dataloader=[batch], device="cpu")
 panel = demo.render_panels(test_iou.build_eval_model(cfg, t, "cpu"),
                            batch["img"][0])
 assert panel.shape == (64, 96, 3) and np.isfinite(panel).all()
+from umr_tpu_torch.experiments import train_s2
+cfg = Config(image_size=32, img_size=32, batch_size=2, num_hypo_cams=2,
+             anti_aliasing=False, subdivide=2, tex_size=2, nz_feat=16,
+             z_dim=8, num_iter=1, print_scalars=False)
+rng = np.random.RandomState(1)
+pvi = [rng.permutation(t.num_verts)[:20] for _ in range(4)]
+trainer = train_s2.run(cfg, [synthetic_batch(rng, 2, 32)], device="cpu",
+                       semantic=(None, rng.randint(0, 5, (16, 32)), pvi))
+assert trainer.state.step == 1
+assert all(np.isfinite(v) for v in trainer.history[0].values())
 loaded = [k for k, v in sys.modules.items()
           if v is not None and k.split(".")[0] in %(blocked)r]
 assert not loaded, loaded

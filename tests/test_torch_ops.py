@@ -72,3 +72,18 @@ def test_grid_sample_and_textures(rng):
         np_of(jgs.sample_textures(jnp.asarray(flow), jnp.asarray(img))),
         atol=ATOL)
     assert torch.is_tensor(tgs.grid_sample(t_of(img), t_of(grid)))
+
+
+def test_ang2quat_and_rotate_cam(rng):
+    ang = rng.standard_normal((4, 3)).astype(np.float32)
+    np.testing.assert_allclose(np_of(tq.ang2quat(t_of(ang))),
+                               np_of(jq.ang2quat(jnp.asarray(ang))),
+                               atol=ATOL)
+    cam = np.concatenate([rng.uniform(0.5, 1.5, (4, 3)), _quats(rng, 4)],
+                         axis=1).astype(np.float32)
+    deg = rng.randint(0, 180, 4)
+    for axis in ((0.0, 1.0, 0.0), (1.0, 2.0, -0.5)):
+        np.testing.assert_allclose(
+            np_of(tq.rotate_cam(t_of(cam), torch.as_tensor(deg), axis)),
+            np_of(jq.rotate_cam(jnp.asarray(cam), jnp.asarray(deg), axis)),
+            atol=ATOL)

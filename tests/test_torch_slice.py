@@ -15,12 +15,13 @@ mean IoU within 1e-3."""
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from torch_parity import (SMALL, assert_close_except_slivers,
                           injected_draws, jax_meshnet, np_of, t_of)
 from umr_tpu.mesh import build_template as jax_template
-from umr_tpu_torch.config import Config
+from umr_tpu_torch.config import Config, resolve_device
 from umr_tpu_torch.data import synthetic_batch
 from umr_tpu_torch.experiments import demo
 from umr_tpu_torch.experiments import test_iou as port_iou
@@ -98,3 +99,19 @@ def test_run_and_panels_on_cpu(tmp_path):
     assert panel.shape == (2 * S, 3 * S, 3)
     assert np.isfinite(panel).all()
     np.testing.assert_array_equal(panel[:S, :S], loader[0]["img"][0])
+
+
+def test_entry_points_default_to_the_card():
+    """No quiet fallback to the CPU: without a device the entry points ask
+    for the card and raise where none is visible (a CPU-only host)."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is visible: the default is valid here")
+    cfg = Config(model_path="absent.pth", **SMALL).sync_image_size()
+    batch = synthetic_batch(np.random.RandomState(0), 2, cfg.image_size)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        port_iou.run(cfg, dataloader=[batch])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        port_iou.build_eval_model(cfg, build_template(2, 1, 2))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        demo.run(cfg)
+    assert resolve_device("cpu") == torch.device("cpu")

@@ -71,7 +71,6 @@ def jax_meshnet(template, image_size, nz_feat, z_dim, num_hypo_cams,
     transforms. flax's init would run op by op, ~20 s on the CPU.
     Returns (model, variables)."""
     from umr_tpu.models import MeshNet as JaxMeshNet
-    from umr_tpu.models.reference_io import _apply_transform, build_key_map
     from umr_tpu_torch.models import MeshNet, init_weights
 
     model = init_weights(
@@ -92,7 +91,17 @@ def jax_meshnet(template, image_size, nz_feat, z_dim, num_hypo_cams,
                 mod.running_mean.copy_(rand(rng.normal, 0.0, 0.1, n))
                 mod.running_var.copy_(rand(rng.uniform, 0.5, 2.0, n))
         model.mean_v.add_(rand(rng.normal, 0.0, 0.05, model.mean_v.shape))
-    sd = {k: v.numpy() for k, v in model.state_dict().items()}
+    jmodel = JaxMeshNet(template=template, nz_feat=nz_feat, z_dim=z_dim,
+                        num_hypo_cams=num_hypo_cams)
+    return jmodel, flax_variables(model, template, num_hypo_cams)
+
+
+def flax_variables(model, template, num_hypo_cams):
+    """A port MeshNet's weights, BN statistics, buffers and mean_v as the
+    JAX package's MeshNet variables, through its key map and transforms."""
+    from umr_tpu.models.reference_io import _apply_transform, build_key_map
+
+    sd = {k: v.detach().cpu().numpy() for k, v in model.state_dict().items()}
     n_up = min(5, int(np.log2(template.uv_image_size()[0])))
     pm, sm, bm, tm = build_key_map(2, num_hypo_cams, n_up)
     variables = {}
@@ -103,9 +112,7 @@ def jax_meshnet(template, image_size, nz_feat, z_dim, num_hypo_cams,
             for part in path[:-1]:
                 node = node.setdefault(part, {})
             node[path[-1]] = _apply_transform(sd[tkey], tf, to_flax=True)
-    jmodel = JaxMeshNet(template=template, nz_feat=nz_feat, z_dim=z_dim,
-                        num_hypo_cams=num_hypo_cams)
-    return jmodel, variables
+    return variables
 
 
 def flax_flat(variables):

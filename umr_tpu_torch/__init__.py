@@ -6,31 +6,46 @@ host-side numpy code the slice needs is copied, and tests pin each copy
 equal to its original.
 
 Port module -> JAX counterpart (umr_tpu/...):
-  config.py                  config.py::Config (without the absl bridge)
-  mesh.py                    mesh/ (icosphere, symmetry, uv, template;
-                             inference members only)
-  data.py                    data/synthetic.py::synthetic_batch (no EDT)
+  config.py                  config.py::Config (without the absl bridge);
+                             beside it the entry points' device rule,
+                             model scope and ResNet input normalisation
+  mesh.py                    mesh/ (icosphere, symmetry, uv, template with
+                             laplacian and flatten_idx)
+  data.py                    data/synthetic.py::synthetic_batch, with the
+                             barrier of utils/image.py::compute_dt_barrier
   obj_io.py                  utils/obj_io.py::save_obj (surface textures)
-  ops/quaternion.py          ops/quaternion.py
+  ops/quaternion.py          ops/quaternion.py (incl. ang2quat, rotate_cam)
   ops/projection.py          ops/projection.py
   ops/grid_sample.py         ops/grid_sample.py (F.grid_sample, align_corners)
   ops/rasterize.py           ops/rasterize.py, forward, training subset;
-                             the CUDA kernel's plain version
+                             the forward kernel's plain version
+  ops/rasterize_bwd.py       ops/raster_kernel_bwd.py's math in plain torch:
+                             the backward kernel's plain version
   ops/raster_bins.py         ops/rasterize_binned.py::_face_tile_cover,
                              ops/raster_kernel.py::compute_raster_bins
   csrc/raster_fwd.cu         ops/raster_kernel.py::_fwd_kernel (Pallas)
-  ops/raster_kernel.py       ops/raster_kernel.py::soft_rasterize_pallas
-                             (forward only; build + launch wrapper)
+  csrc/raster_bwd.cu         ops/raster_kernel_bwd.py::_bwd_kernel (Pallas)
+  csrc/raster_common.cuh     ops/raster_kernel.py::_pair_math
+  ops/raster_kernel.py       ops/raster_kernel.py::soft_rasterize_pallas,
+                             _pallas_raster_vjp (build, launch, autograd)
   renderer/soft_renderer.py  renderer/soft_renderer.py
   models/net_blocks.py       models/net_blocks.py
   models/resnet.py           models/resnet.py
   models/heads.py            models/heads.py (stage-2 heads)
   models/mesh_net.py         models/mesh_net.py::MeshNet, symmetrize
+  models/lpips.py            models/lpips.py::LPIPSAlex
+  models/discriminator.py    models/discriminator.py (GRL as a Function)
   models/reference_io.py     models/reference_io.py::build_key_map (data)
   models/weights.py          models/weight_io.py (npz),
-                             training/checkpoints.py::load_pth
+                             training/checkpoints.py::load_pth, flax ->
+                             torch for the discriminator and LPIPS
+  losses/losses.py           losses/losses.py
+  losses/composite.py        losses/composite.py
+  training/steps.py          training/steps.py::build_s2_step
+  training/trainer.py        training/trainer.py (prepare_batch, the loop)
   experiments/test_iou.py    experiments/test_iou.py
   experiments/demo.py        experiments/demo.py
+  experiments/train_s2.py    experiments/train_s2.py::run
   cli.py                     config.py::define_flags (argparse, same names)
 
 Parity traps the port reproduces:
@@ -49,6 +64,14 @@ Parity traps the port reproduces:
   * rasterizer: |det| <= 1e-10 faces are culled; hard-mode ties go to the
     lowest face id; the per-tile cap and entry_cap truncate exactly as the
     TPU kernel's binning does.
+  * backward (kernel and plain): the reference CUDA semantics, not the
+    derivative: a pair whose depth is outside [near, far] gives no
+    gradient at all (zgate), dA/dD = (1 - A) / max(1 - D, 1e-6), the exp
+    argument masked before the exp; hard mode has no backward.
+  * losses: TexCycle marks face id -1 (background) on the last face; the
+    s2 cycle target is the hard render's p2f, all zeros; corr_loss's
+    zero-weighted neck/back parts stay in the mean's denominator.
+  * trainer: the GAN's real images lag one batch.
 """
 
 __version__ = "0.1.0"

@@ -6,12 +6,22 @@ fields, their defaults and validate() equal to the JAX package's).
 Most fields are read by the JAX package's trainers only; the port's
 inference entry points read the model, renderer and I/O ones. cli.py
 builds the command line from these fields.
+
+Beside it, what every entry point and the training layer share: the
+device rule (resolve_device), the model scope the port supports
+(check_supported) and the ResNet input normalisation.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+RESNET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
+RESNET_STD = np.array([0.229, 0.224, 0.225], np.float32)
 
 
 @dataclass(frozen=True)
@@ -148,3 +158,29 @@ class Config:
         if self.img_size != 256:
             return self.replace(image_size=self.img_size)
         return self
+
+
+def resolve_device(device=None):
+    """The entry points' device: the card unless the caller names another
+    (device="cpu" for the CPU). No quiet fallback: asking for the card
+    where none is visible raises."""
+    device = torch.device(device if device is not None else "cuda")
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is visible; pass device='cpu' "
+                           "to run on the CPU")
+    return device
+
+
+def check_supported(cfg: Config):
+    """The port has the stage-2 model only: textured, multi-hypothesis."""
+    for k in ("use_texture", "pred_cam", "multiple_cam_hypo"):
+        if not getattr(cfg, k):
+            raise NotImplementedError(f"--{k}=False is not ported")
+    if cfg.az_ele_quat:
+        raise NotImplementedError("--az_ele_quat is not ported")
+
+
+def normalize_images(imgs):
+    """Images [..., 3] in [0, 1] (numpy float32) -> the encoder's input,
+    normalised with the ImageNet mean and std."""
+    return (imgs - RESNET_MEAN) / RESNET_STD

@@ -1,8 +1,9 @@
 """Synthetic batches with the structure of the CUB pipeline's output, for
 tests and smoke runs without the dataset on disk (copy of
-umr_tpu/data/synthetic.py::synthetic_batch without the distance-transform
-field, which only the training losses read; tests/test_torch_host.py pins
-it equal to the JAX package's with with_dt=False).
+umr_tpu/data/synthetic.py::synthetic_batch; its distance-transform
+barrier is umr_tpu/utils/image.py::compute_dt_barrier, with scipy, where
+the JAX package calls its native C++ copy; tests/test_torch_host.py pins
+both equal to the JAX package's).
 
 Masks are ellipse blobs, images coloured noise inside the mask, part
 probability maps four gaussian bumps inside the mask.
@@ -19,10 +20,22 @@ def _ellipse_mask(H, W, cx, cy, rx, ry):
         np.float32)
 
 
+def compute_dt_barrier(mask, k=50):
+    """Sigmoid of the signed, normalised Euclidean distance transform of a
+    [H, W] mask: ~0 inside, 0.5 on the boundary, -> 1 outside."""
+    from scipy.ndimage import distance_transform_edt
+
+    dist_out = distance_transform_edt(1 - mask)
+    dist_in = distance_transform_edt(mask)
+    dist_diff = (dist_out - dist_in) / max(mask.shape)
+    return 1.0 / (1.0 + np.exp(k * -dist_diff))
+
+
 def synthetic_batch(rng: np.random.RandomState, batch_size=4, image_size=64,
-                    num_parts=4, points=(10, 30, 10, 30)):
+                    num_parts=4, points=(10, 30, 10, 30), with_dt=True):
     """A dict of channel-last numpy arrays: img, input_img, mask, kp,
-    sfm_pose, part_prob, {head,belly,neck,back}_points, real_imgs."""
+    sfm_pose, part_prob, {head,belly,neck,back}_points, real_imgs and,
+    with_dt, dts_barrier [B, H, W, 1]."""
     B, S = batch_size, image_size
     imgs = np.zeros((B, S, S, 3), np.float32)
     masks = np.zeros((B, S, S), np.float32)
@@ -77,4 +90,8 @@ def synthetic_batch(rng: np.random.RandomState, batch_size=4, image_size=64,
     }
     for name in ("head", "belly", "neck", "back"):
         batch[f"{name}_points"] = np.stack(pts[name]).astype(np.float32)
+    if with_dt:
+        batch["dts_barrier"] = np.stack(
+            [compute_dt_barrier(m) for m in masks]).astype(np.float32)[
+                ..., None]
     return batch

@@ -16,12 +16,11 @@ import os
 import numpy as np
 import torch
 
-from ..config import Config
+from ..config import RESNET_MEAN, RESNET_STD, Config
 from ..models.mesh_net import symmetrize
 from ..ops.grid_sample import sample_textures
 from ..ops.quaternion import axis_angle_to_quat, hamilton_product
 from ..renderer import SoftRenderer
-from .test_iou import RESNET_MEAN, RESNET_STD
 
 BLUE = (156 / 255.0, 199 / 255.0, 234 / 255.0)
 

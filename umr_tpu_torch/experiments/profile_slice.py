@@ -1,7 +1,9 @@
 """Where the time of a test_iou batch goes on the GPU: MeshNet-s2 forward
 against the softmax silhouette render, the render's binning and kernel,
 the device's busy share from a torch.profiler trace, and the kernel's own
-device time at the demo's hard, textured render.
+device time at the demo's hard, textured render. Its trace helpers
+(trace_events, range_split, busy_us) also split the s2 training step by
+its profiler ranges (chip_smoke.py).
 
   python -m umr_tpu_torch.experiments.profile_slice [--out summary.json]
 
@@ -24,14 +26,11 @@ from ..config import Config
 from ..data import synthetic_batch
 from ..mesh import build_template
 from ..models import MeshNet, init_weights, symmetrize
-from ..models.weights import load_resnet18_npz
+from ..models.weights import WEIGHTS_DIR, load_resnet18_npz
 from ..ops import raster_kernel
 from ..ops.raster_bins import compute_raster_bins
 from ..renderer import SoftRenderer, apply_lighting, surface_normals
 from . import demo, test_iou
-
-WEIGHTS = os.path.join(os.path.dirname(os.path.dirname(
-    os.path.dirname(os.path.abspath(__file__)))), "weights")
 
 
 def random_model(cfg, template, seed, device):
@@ -42,8 +41,8 @@ def random_model(cfg, template, seed, device):
                                  num_hypo_cams=cfg.num_hypo_cams),
                          torch.Generator().manual_seed(seed))
     res = model.load_state_dict(load_resnet18_npz(
-        os.path.join(WEIGHTS, "resnet18_params.npz"),
-        os.path.join(WEIGHTS, "resnet18_stats.npz")), strict=False)
+        os.path.join(WEIGHTS_DIR, "resnet18_params.npz"),
+        os.path.join(WEIGHTS_DIR, "resnet18_stats.npz")), strict=False)
     assert not res.unexpected_keys, res.unexpected_keys
     return model.to(device).eval()
 
@@ -68,9 +67,13 @@ def stats(ms):
             "q75": float(np.quantile(ms, .75)), "n": int(ms.size)}
 
 
-def trace_kernels(fn, steps):
-    """Runs fn() `steps` times under torch.profiler; returns (device kernel
-    events [(name, ts_us, dur_us)], wall microseconds)."""
+DEVICE_CATS = ("kernel", "gpu_memset", "gpu_memcpy")
+
+
+def trace_events(fn, steps):
+    """Runs fn() `steps` times under torch.profiler (host and device), after
+    one untraced call; returns (the Chrome trace's events, wall
+    microseconds of the traced calls by CUDA events)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -89,9 +92,58 @@ def trace_kernels(fn, steps):
         prof.export_chrome_trace(path)
         with open(path) as f:
             events = json.load(f)["traceEvents"]
-    kern = [(e["name"], float(e["ts"]), float(e["dur"])) for e in events
-            if e.get("cat") == "kernel" and "dur" in e]
-    return kern, start.elapsed_time(end) * 1e3
+    return events, start.elapsed_time(end) * 1e3
+
+
+def device_ops(events, cats=DEVICE_CATS):
+    """[(name, ts_us, dur_us)] of the trace's device events of `cats`."""
+    return [(e["name"], float(e["ts"]), float(e["dur"])) for e in events
+            if e.get("cat") in cats and "dur" in e]
+
+
+def trace_kernels(fn, steps):
+    """Runs fn() `steps` times under torch.profiler; returns (device kernel
+    events [(name, ts_us, dur_us)], wall microseconds)."""
+    events, wall_us = trace_events(fn, steps)
+    return device_ops(events, ("kernel",)), wall_us
+
+
+def launch_times(events):
+    """{correlation id: host microsecond} of the trace's CUDA API calls
+    (the launches of its device events)."""
+    launch = {}
+    for e in events:
+        if e.get("cat", "").startswith("cuda_"):
+            corr = e.get("args", {}).get("correlation")
+            if corr is not None:
+                launch[corr] = float(e["ts"])
+    return launch
+
+
+def range_split(events, prefix, steps):
+    """Device milliseconds per step by host range: each device event
+    (kernel, memset, memcpy) counts to the innermost profiler range named
+    prefix* that was open on the host when its launch was issued (the
+    runtime call of the same correlation id, on any thread), else to
+    "outside" (launched outside every such range) or "unmatched" (no
+    launch call in the trace). Returns {name: ms}."""
+    launch = launch_times(events)
+    ranges = sorted(((float(e["ts"]), float(e["ts"]) + float(e["dur"]),
+                      e["name"]) for e in events
+                     if e.get("cat") == "user_annotation"
+                     and e["name"].startswith(prefix)),
+                    key=lambda r: r[1] - r[0])   # innermost first
+    out = {}
+    for e in events:
+        if e.get("cat") not in DEVICE_CATS or "dur" not in e:
+            continue
+        t = launch.get(e.get("args", {}).get("correlation"))
+        name = "unmatched"
+        if t is not None:
+            name = next((n for lo, hi, n in ranges if lo <= t <= hi),
+                        "outside")
+        out[name] = out.get(name, 0.0) + float(e["dur"]) / steps / 1e3
+    return out
 
 
 def busy_us(kern):

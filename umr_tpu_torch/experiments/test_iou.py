@@ -13,42 +13,28 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..config import Config
+from ..config import (Config, check_supported, normalize_images,
+                      resolve_device)
 from ..mesh import build_template
 from ..models.mesh_net import MeshNet, symmetrize
 from ..models.weights import load_checkpoint
 from ..renderer import SoftRenderer
 
-RESNET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
-RESNET_STD = np.array([0.229, 0.224, 0.225], np.float32)
-
-
-def default_device():
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
-
-
-def check_supported(cfg: Config):
-    """The port has the stage-2 model only: textured, multi-hypothesis."""
-    for k in ("use_texture", "pred_cam", "multiple_cam_hypo"):
-        if not getattr(cfg, k):
-            raise NotImplementedError(f"--{k}=False is not ported")
-    if cfg.az_ele_quat:
-        raise NotImplementedError("--az_ele_quat is not ported")
-
 
 def build_eval_model(cfg: Config, template, device=None):
     """MeshNet-s2 with the weights of cfg.model_path, in eval mode."""
     check_supported(cfg)
+    device = resolve_device(device)
     model = MeshNet(template, input_size=cfg.image_size, nz_feat=cfg.nz_feat,
                     z_dim=cfg.z_dim, num_hypo_cams=cfg.num_hypo_cams)
     load_checkpoint(model, cfg.model_path)
-    return model.to(device or default_device()).eval()
+    return model.to(device).eval()
 
 
 def prepare_batch(batch):
     """Host batch dict -> (normalised input images, masks), numpy."""
-    imgs = batch["img"].astype(np.float32)
-    return (imgs - RESNET_MEAN) / RESNET_STD, batch["mask"].astype(np.float32)
+    return (normalize_images(batch["img"].astype(np.float32)),
+            batch["mask"].astype(np.float32))
 
 
 @torch.no_grad()
@@ -72,7 +58,7 @@ def run(cfg: Config, dataloader=None, device=None):
             "pass a dataloader: the CUB loader is not ported yet")
     if cfg.visualize:
         raise NotImplementedError("--visualize is not ported")
-    device = torch.device(device) if device else default_device()
+    device = resolve_device(device)
     template = build_template(cfg.subdivide, cfg.axis, cfg.tex_size)
     model = build_eval_model(cfg, template, device)
     renderer = SoftRenderer(image_size=cfg.image_size, render_type="softmax",

@@ -3,8 +3,8 @@ face order, per-face UV sampler (copy of the inference part of
 umr_tpu/mesh/, so that the port never imports the JAX package;
 tests/test_torch_host.py pins build_template equal to the JAX package's).
 
-The training-only members of the JAX template (graph Laplacian, flatten
-edge indices) come with the port of the losses.
+With the training members: the graph Laplacian and the flatten loss's
+edge indices.
 """
 
 from __future__ import annotations
@@ -135,6 +135,40 @@ def make_faces_symmetric(verts, faces, num_indept_verts, num_sym_verts,
     return new_faces, len(indept_faces), len(right_faces)
 
 
+def compute_laplacian(num_verts, faces):
+    """Row-normalised uniform graph Laplacian L = I - A / deg, [V, V]."""
+    lap = np.zeros((num_verts, num_verts), dtype=np.float64)
+    for a, b in [(0, 1), (1, 2), (2, 0)]:
+        lap[faces[:, a], faces[:, b]] = -1
+        lap[faces[:, b], faces[:, a]] = -1
+    r, c = np.diag_indices(num_verts)
+    lap[r, c] = -lap.sum(1)
+    lap /= lap[r, c][:, None]
+    return lap.astype(np.float32)
+
+
+def compute_flatten_indices(faces):
+    """(v0, v1, v2, v3) per edge for the dihedral flatten loss, [E, 4]:
+    candidate edges are each face's (f0, f1) and (f1, f2), as the
+    reference enumerates them (edges met only in the (f0, f2) slot are
+    skipped); v2, v3 are the opposite vertices of the edge's two faces."""
+    faces = np.asarray(faces, dtype=np.int64)
+    cand = np.sort(
+        np.concatenate([faces[:, 0:2], faces[:, 1:3]], axis=0), axis=1)
+    edges = sorted(set(map(tuple, cand)))
+    opp = {}
+    for face in faces:
+        for e1, e2, o in [(0, 1, 2), (0, 2, 1), (1, 2, 0)]:
+            key = (min(face[e1], face[e2]), max(face[e1], face[e2]))
+            opp.setdefault(key, []).append(face[o])
+    out = []
+    for v0, v1 in edges:
+        others = opp[(v0, v1)]
+        assert len(others) == 2, "non-manifold edge"
+        out.append((v0, v1, others[0], others[1]))
+    return np.asarray(out, dtype=np.int64)
+
+
 def get_spherical_coords(X):
     """X [N,3] on the unit sphere -> [N,2] (azimuth, inclination) in
     [-1, 1]."""
@@ -170,8 +204,18 @@ class MeshTemplate:
     num_sym_faces: int
     mean_v_init: np.ndarray     # [num_indept + num_sym, 3] half mean shape
     uv_sampler: np.ndarray      # [F_tex, T, T, 2], F_tex = indept+right faces
+    laplacian: np.ndarray       # [V, V] row-normalised graph Laplacian
+    flatten_idx: np.ndarray     # [E, 4] (v0, v1, v2, v3) per edge
     axis: int
     tex_size: int
+
+    @property
+    def num_verts(self):
+        return self.verts.shape[0]
+
+    @property
+    def num_faces(self):
+        return self.faces.shape[0]
 
     @property
     def num_output(self):
@@ -201,5 +245,7 @@ def build_template(subdivide=3, axis=1, tex_size=6):
         num_indept=num_indept, num_sym=num_sym,
         num_indept_faces=num_indept_faces, num_sym_faces=num_sym_faces,
         mean_v_init=verts[:num_indept + num_sym].astype(np.float32),
-        uv_sampler=uv_sampler.astype(np.float32), axis=axis,
+        uv_sampler=uv_sampler.astype(np.float32),
+        laplacian=compute_laplacian(verts.shape[0], faces),
+        flatten_idx=compute_flatten_indices(faces), axis=axis,
         tex_size=tex_size)

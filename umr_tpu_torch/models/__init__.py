@@ -1,1 +1,3 @@
+from .discriminator import Discriminator  # noqa: F401
+from .lpips import LPIPSAlex  # noqa: F401
 from .mesh_net import MeshNet, init_weights, symmetrize  # noqa: F401

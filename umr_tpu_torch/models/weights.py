@@ -7,10 +7,16 @@ umr_tpu/training/checkpoints.py::load_pth.
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
 
 from .reference_io import build_key_map, resnet_maps, to_torch_layout
+
+# the committed weights: ResNet-18 trunk, LPIPS AlexNet
+WEIGHTS_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__)))), "weights")
 
 # batch-shaped buffers of the reference's checkpoints, not in the port's state
 _REFERENCE_ONLY = ("texture_predictor.uv_sampler", "noise")
@@ -89,3 +95,46 @@ def load_checkpoint(model, path):
     sd = {k: v for k, v in raw.items()
           if k not in _REFERENCE_ONLY and ".resnet.fc." not in k}
     return load_into(model, sd)
+
+
+def _conv_from_flax(p):
+    """flax Conv {'kernel' HWIO, 'bias'} -> (OIHW weight, bias) tensors."""
+    return (torch.tensor(np.asarray(p["kernel"], np.float32)
+                         .transpose(3, 2, 0, 1).copy()),
+            torch.tensor(np.asarray(p["bias"], np.float32)))
+
+
+def discriminator_state_from_flax(params):
+    """The JAX package's Discriminator params (Conv_0..Conv_4, Dense_0)
+    -> the port's Discriminator state_dict."""
+    sd = {}
+    for i, name in enumerate([f"convs.{i}" for i in range(4)] + ["head"]):
+        sd[f"{name}.weight"], sd[f"{name}.bias"] = _conv_from_flax(
+            params[f"Conv_{i}"])
+    dense = params["Dense_0"]
+    sd["fc.weight"] = torch.tensor(np.asarray(dense["kernel"], np.float32).T
+                                   .copy())
+    sd["fc.bias"] = torch.tensor(np.asarray(dense["bias"], np.float32))
+    return sd
+
+
+def lpips_state_from_flax(params):
+    """LPIPSAlex params {'conv0': {'kernel', 'bias'}, ...} (the JAX
+    package's params['alex']) -> the port's LPIPSAlex state_dict."""
+    sd = {}
+    for i in range(len(params)):
+        sd[f"convs.{i}.weight"], sd[f"convs.{i}.bias"] = _conv_from_flax(
+            params[f"conv{i}"])
+    return sd
+
+
+def load_lpips_npz(model, path):
+    """weights/lpips_alex.npz (flax paths conv{i}/kernel, conv{i}/bias)
+    into an LPIPSAlex."""
+    flat = np.load(path)
+    tree = {}
+    for key in flat.files:
+        conv, leaf = key.split("/")
+        tree.setdefault(conv, {})[leaf] = flat[key]
+    model.load_state_dict(lpips_state_from_flax(tree))
+    return model

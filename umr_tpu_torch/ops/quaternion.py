@@ -5,6 +5,8 @@ Convention: quaternions are (w, x, y, z).
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 
@@ -42,3 +44,27 @@ def axis_angle_to_quat(axis, angle):
         [torch.cos(half)[..., None], axis * torch.sin(half)[..., None]],
         dim=-1,
     )
+
+
+def ang2quat(angles):
+    """Tanh-squashed (azimuth, elev, cyc) angles [B, 3] -> quaternions
+    [B, 4] (the CUB ranges pi/6, pi/2, pi/3)."""
+    ang = torch.tanh(angles)
+    ey, ex, ez = (angles.new_tensor(v) for v in
+                  ((0.0, 1.0, 0.0), (1.0, 0.0, 0.0), (0.0, 0.0, 1.0)))
+    q_az = axis_angle_to_quat(ey, math.pi / 6 * ang[..., 0])
+    q_el = axis_angle_to_quat(ex, math.pi / 2 * ang[..., 1])
+    q_cr = axis_angle_to_quat(ez, math.pi / 3 * ang[..., 2])
+    return hamilton_product(q_cr, hamilton_product(q_el, q_az))
+
+
+def rotate_cam(cam, angles_deg, axis=(0.0, 1.0, 0.0)):
+    """Rotate the quaternion of weak-perspective cams [B, 7] about `axis`
+    by angles_deg [B] degrees: q <- q_axis(angle) * q."""
+    angles = torch.deg2rad(torch.as_tensor(angles_deg, dtype=cam.dtype,
+                                           device=cam.device))
+    axis = cam.new_tensor(axis)
+    axis = axis / torch.linalg.norm(axis)
+    q_rot = axis_angle_to_quat(axis.expand(angles.shape + (3,)), angles)
+    return torch.cat([cam[:, :3], hamilton_product(q_rot, cam[:, 3:7])],
+                     dim=-1)

@@ -86,12 +86,14 @@ def _face_info(fx, fy, fz):
     )
 
 
-def _euclidean(w, fi, xp, yp):
+def _euclidean(w, fi, xp, yp, foot=False):
     """Signed euclidean pixel-to-triangle distance components.
 
-    w: 3 x [B,Fc,P]; fi: _face_info. Returns (inside, dis_x, dis_y)."""
+    w: 3 x [B,Fc,P]; fi: _face_info. Returns (inside, dis_x, dis_y), and
+    with foot=True also the selected foot point's weights minus w
+    (3 x [B,Fc,P]), which the backward's vertex gradient reads."""
     xs, ys = fi["xs"], fi["ys"]
-    dxu, dyu, dxc, dyc, du = [], [], [], [], []
+    dxu, dyu, dxc, dyc, du, tus, tcs = [], [], [], [], [], [], []
     for k, (a0, rden) in enumerate(fi["edges"]):
         v0, v1, v2 = k, (k + 1) % 3, (k + 2) % 3
         tv0 = (w[0] * a0[0] + w[1] * a0[1] + w[2] * a0[2] - a0[v1]) * rden
@@ -107,6 +109,12 @@ def _euclidean(w, fi, xp, yp):
         du.append(dx * dx + dy * dy)
         dxc.append(dx + delta * (xs[v0] - xs[v1]))
         dyc.append(dy + delta * (ys[v0] - ys[v1]))
+        if foot:
+            tc = list(tu)
+            tc[v0] = tu[v0] + delta
+            tc[v1] = tu[v1] - delta
+            tus.append(tu)
+            tcs.append(tc)
 
     # nearest edge when inside (first minimum on ties)
     k_in = torch.where(du[1] < du[0], 1, 0)
@@ -138,7 +146,90 @@ def _euclidean(w, fi, xp, yp):
               & (w[0] < 1) & (w[1] < 1) & (w[2] < 1))
     dis_x = torch.where(inside, pick(dxu, k_in), pick(dxc, v_out))
     dis_y = torch.where(inside, pick(dyu, k_in), pick(dyc, v_out))
-    return inside, dis_x, dis_y
+    if not foot:
+        return inside, dis_x, dis_y
+    t_sel = [torch.where(inside, pick([tu[j] for tu in tus], k_in),
+                         pick([tc[j] for tc in tcs], v_out))
+             for j in range(3)]
+    return inside, dis_x, dis_y, t_sel
+
+
+def face_chunks(face_vertices, textures, face_chunk):
+    """Per-face setup of [B, F, 3, 3] faces in chunks of face_chunk, the
+    last chunk padded with the offscreen dummy face. A list of
+    _face_info dicts, each with 'ok' (kept faces, [B,Fc,1]), 'tex' (their
+    texel sheets) and 'base' (the chunk's first face id)."""
+    B, F = face_vertices.shape[:2]
+    dtype, device = face_vertices.dtype, face_vertices.device
+    Fc = min(face_chunk, F)
+    n_chunks = -(-F // Fc)
+    F_pad = n_chunks * Fc
+    fv, tex = face_vertices, textures
+    if F_pad != F:
+        dummy = torch.tensor(_DUMMY_FACE, dtype=dtype, device=device)
+        fv = torch.cat([fv, dummy.expand(B, F_pad - F, 3, 3)], dim=1)
+        tex = torch.cat(
+            [tex, tex.new_zeros((B, F_pad - F) + tuple(tex.shape[2:]))], 1)
+    face_valid = torch.arange(F_pad, device=device) < F
+    chunks = []
+    for ci in range(n_chunks):
+        sl = slice(ci * Fc, (ci + 1) * Fc)
+        fi = _face_info(fv[:, sl, :, 0], fv[:, sl, :, 1], fv[:, sl, :, 2])
+        fi["ok"] = fi.pop("nondegen") & face_valid[None, sl, None]
+        fi["tex"] = tex[:, sl]
+        fi["base"] = ci * Fc
+        chunks.append(fi)
+    return chunks
+
+
+def pixel_block(S, pixel_rows_per_block):
+    """(rows per block, pixels per block) of an S x S image."""
+    rows_blk = min(pixel_rows_per_block, S)
+    if S % rows_blk:
+        raise ValueError("image_size must be divisible by pixel_rows_per_block")
+    return rows_blk, rows_blk * S
+
+
+def pixel_coords(S, r0, rows, dtype, device):
+    """NDC centres (xp, yp), [1, 1, rows * S] each, of pixel rows
+    r0 .. r0 + rows - 1."""
+    ar = torch.arange(S, dtype=dtype, device=device)
+    xp = (2.0 * ar + 1.0 - S) / S
+    yp = (2.0 * (S - 1 - ar) + 1.0 - S) / S
+    return (xp.repeat(rows)[None, None, :],
+            yp[r0:r0 + rows].repeat_interleave(S)[None, None, :])
+
+
+def pair_math(ch, xp, yp, threshold, margin, inv_sigma, foot=False):
+    """Everything a (pixel, face) pair computes that does not depend on
+    the other faces, for one face chunk `ch` (face_chunks) and pixels
+    (xp, yp): a dict of [B,Fc,P] tensors (lists of 3 for w, wc and, with
+    foot=True, t). `valid` is the bbox/threshold/degenerate cull; `frag`
+    is zero where it fails."""
+    maxx, minx, maxy, miny = ch["bbox"]
+    out_border = ((xp > maxx + margin) | (xp < minx - margin)
+                  | (yp > maxy + margin) | (yp < miny - margin))
+    valid = ~out_border & ch["ok"]
+    inv = ch["inv"]
+    w = [inv[3 * k] * xp + inv[3 * k + 1] * yp + inv[3 * k + 2]
+         for k in range(3)]
+    inside, dis_x, dis_y, *t = _euclidean(w, ch, xp, yp, foot=foot)
+    sign = torch.where(inside, 1.0, -1.0)
+    dis = dis_x * dis_x + dis_y * dis_y
+    valid = valid & ~((sign < 0) & (dis >= threshold))
+    frag = torch.sigmoid(sign * dis * inv_sigma) * valid
+
+    wc = [a.clamp(1e-5, 1.0 - 1e-5) for a in w]
+    rws = 1.0 / (wc[0] + wc[1] + wc[2]).clamp_min(1e-5)
+    wc = [a * rws for a in wc]
+    rz = ch["rz"]
+    zp = 1.0 / (wc[0] * rz[0] + wc[1] * rz[1] + wc[2] * rz[2])
+    z_ok = (zp >= NEAR) & (zp <= FAR)
+    out = dict(w=w, valid=valid, frag=frag, sign=sign, dis_x=dis_x,
+               dis_y=dis_y, wc=wc, zp=zp, z_ok=z_ok)
+    if foot:
+        out["t"] = t[0]
+    return out
 
 
 def texel_index(wc, T2):
@@ -185,24 +276,8 @@ def soft_rasterize(
     T2 = textures.shape[2]
     threshold, margin = threshold_of(sigma_val, dist_eps)
 
-    Fc = min(face_chunk, F)
-    n_chunks = -(-F // Fc)
-    F_pad = n_chunks * Fc
-    fv, tex = face_vertices, textures
-    if F_pad != F:
-        dummy = torch.tensor(_DUMMY_FACE, dtype=dtype, device=device)
-        fv = torch.cat([fv, dummy.expand(B, F_pad - F, 3, 3)], dim=1)
-        tex = torch.cat(
-            [tex, tex.new_zeros((B, F_pad - F) + tuple(tex.shape[2:]))], 1)
-    face_valid = torch.arange(F_pad, device=device) < F
-
-    rows_blk = min(pixel_rows_per_block, S)
-    if S % rows_blk:
-        raise ValueError("image_size must be divisible by pixel_rows_per_block")
-    P = rows_blk * S
-    ar = torch.arange(S, dtype=dtype, device=device)
-    xp_col = (2.0 * ar + 1.0 - S) / S
-    yp_row = (2.0 * (S - 1 - ar) + 1.0 - S) / S
+    chunks = face_chunks(face_vertices, textures, face_chunk)
+    rows_blk, P = pixel_block(S, pixel_rows_per_block)
 
     bg = list(background_color)[:3] + [0.0] * (3 - len(background_color))
     bg = torch.tensor(bg, dtype=dtype, device=device)
@@ -211,49 +286,23 @@ def soft_rasterize(
     inv_gamma = 1.0 / gamma_val
     inv_depth_range = 1.0 / (FAR - NEAR)
 
-    chunks = []
-    for ci in range(n_chunks):
-        sl = slice(ci * Fc, (ci + 1) * Fc)
-        fi = _face_info(fv[:, sl, :, 0], fv[:, sl, :, 1], fv[:, sl, :, 2])
-        fi["ok"] = fi.pop("nondegen") & face_valid[None, sl, None]
-        fi["tex"] = tex[:, sl]
-        fi["base"] = ci * Fc
-        chunks.append(fi)
-
     rgba_rows, aggr_rows = [], []
     for r0 in range(0, S, rows_blk):
-        xp = xp_col.repeat(rows_blk)[None, None, :]               # [1,1,P]
-        yp = yp_row[r0:r0 + rows_blk].repeat_interleave(S)[None, None, :]
-        alpha_acc = fv.new_ones((B, P))
+        xp, yp = pixel_coords(S, r0, rows_blk, dtype, device)
+        alpha_acc = face_vertices.new_ones((B, P))
         if hard:
-            depth = fv.new_full((B, P), 1e7)
+            depth = face_vertices.new_full((B, P), 1e7)
             fid = torch.full((B, P), -1, dtype=torch.int64, device=device)
             color_acc = bg.expand(B, P, 3).clone()
         else:
-            m = fv.new_full((B, P), EPS)
-            s = fv.new_full((B, P), bg_weight)
+            m = face_vertices.new_full((B, P), EPS)
+            s = face_vertices.new_full((B, P), bg_weight)
             color_acc = bg.expand(B, P, 3) * bg_weight
         for ch in chunks:
-            maxx, minx, maxy, miny = ch["bbox"]
-            out_border = ((xp > maxx + margin) | (xp < minx - margin)
-                          | (yp > maxy + margin) | (yp < miny - margin))
-            valid = ~out_border & ch["ok"]
-            inv = ch["inv"]
-            w = [inv[3 * k] * xp + inv[3 * k + 1] * yp + inv[3 * k + 2]
-                 for k in range(3)]
-            inside, dis_x, dis_y = _euclidean(w, ch, xp, yp)
-            sign = torch.where(inside, 1.0, -1.0)
-            dis = dis_x * dis_x + dis_y * dis_y
-            valid = valid & ~((sign < 0) & (dis >= threshold))
-            frag = torch.sigmoid(sign * dis * inv_sigma) * valid
+            pm = pair_math(ch, xp, yp, threshold, margin, inv_sigma)
+            w, valid, frag, wc, zp, z_ok = (
+                pm[k] for k in ("w", "valid", "frag", "wc", "zp", "z_ok"))
             alpha_acc = alpha_acc * torch.prod(1.0 - frag, dim=1)
-
-            wc = [a.clamp(1e-5, 1.0 - 1e-5) for a in w]
-            rws = 1.0 / (wc[0] + wc[1] + wc[2]).clamp_min(1e-5)
-            wc = [a * rws for a in wc]
-            rz = ch["rz"]
-            zp = 1.0 / (wc[0] * rz[0] + wc[1] * rz[1] + wc[2] * rz[2])
-            z_ok = (zp >= NEAR) & (zp <= FAR)
             if not mask_only:
                 idx = texel_index(wc, T2)                          # [B,Fc,P]
                 color = torch.gather(
@@ -298,5 +347,5 @@ def soft_rasterize(
         aggr_rows.append(aggr.reshape(B, 2, rows_blk, S))
 
     return RasterOut(rgba=torch.cat(rgba_rows, 1),
-                     p2f=fv.new_zeros((B, F, 2)),
+                     p2f=face_vertices.new_zeros((B, F, 2)),
                      aggr=torch.cat(aggr_rows, 2))

@@ -2,11 +2,17 @@
 2x anti-aliasing (port of umr_tpu/renderer/soft_renderer.py).
 
 Reference constants: look_at eye (0,0,-2.732), orthographic, sigma 1e-5,
-gamma 1e-4, dist_eps 1e-10, ambient 0.8, directional 0.5 along +y,
-offset_z 5, anti-aliasing (render at 2x and average-pool).
+gamma 1e-4, dist_eps 1e-10, ambient 0.8 (1.0 after ambient_light_only),
+directional 0.5 along +y, offset_z 5, anti-aliasing (render at 2x and
+average-pool).
 
-On a CUDA tensor the rasterizer is the CUDA kernel (ops/raster_kernel.py);
-on a CPU tensor it is the kernel's plain version.
+Routing (the JAX package's `impl`): under "auto" a CUDA tensor takes the
+kernels' autograd Function (ops/raster_kernel.py: forward kernel,
+backward kernel with the reference CUDA gradient semantics) and a CPU
+tensor the plain forward (ops/rasterize.py) under torch autograd, exact
+AD, as the JAX package's XLA paths. "kernel" takes the Function on the
+CPU too (through the kernels' plain versions), so that CPU tests drive
+the card's route.
 """
 
 from __future__ import annotations
@@ -16,8 +22,9 @@ import dataclasses
 import torch
 
 from ..ops.projection import orthographic_proj_withz
-from ..ops.raster_kernel import TILE_SIZE, soft_rasterize_fwd
-from ..ops.rasterize import RasterOut
+from ..ops.raster_bins import compute_raster_bins
+from ..ops.raster_kernel import MAX_COVER, TILE_SIZE, soft_rasterize_fwd
+from ..ops.rasterize import RasterOut, soft_rasterize
 
 
 def surface_normals(face_verts):
@@ -58,10 +65,21 @@ class SoftRenderer:
     light_color: tuple = (1.0, 1.0, 1.0)
     eye: tuple = (0.0, 0.0, -2.732)
     offset_z: float = 5.0
+    impl: str = "auto"                    # auto | kernel (see module doc)
+
+    def ambient_light_only(self):
+        return dataclasses.replace(self, ambient_intensity=1.0,
+                                   directional_intensity=0.0)
 
     @property
     def render_size(self):
         return self.image_size * (2 if self.anti_aliasing else 1)
+
+    def uses_kernel(self, device):
+        """Whether renders on `device` take the kernels' route."""
+        if self.impl not in ("auto", "kernel"):
+            raise ValueError(f"impl={self.impl!r}")
+        return torch.device(device).type == "cuda" or self.impl == "kernel"
 
     def resolved_mf_cap(self, num_faces):
         """The kernel's per-tile face cap, sized as the JAX package sizes
@@ -73,6 +91,10 @@ class SoftRenderer:
         cap = min(num_faces, min(max(256, cap), 1024))
         return -(-cap // 32) * 32
 
+    def project_points(self, verts, cams):
+        """[B,N,3], [B,7] -> [B,N,2]."""
+        return orthographic_proj_withz(verts, cams)[:, :, :2]
+
     def project_faces(self, vertices, faces, cams):
         """verts [B,V,3], faces [F,3] int, cams [B,7] -> [B,F,3,3] in the
         rasterizer's frame (y flipped, eye offset)."""
@@ -82,21 +104,49 @@ class SoftRenderer:
         verts = verts - verts.new_tensor(self.eye)
         return verts[:, faces.long()]
 
-    def render(self, vertices, faces, cams, textures=None):
+    def compute_bins(self, vertices, faces, cams):
+        """The kernels' face -> tile bins of this render, computed once so
+        that renders of the same projected geometry share them; valid for
+        any renderer that agrees on image_size, anti_aliasing, sigma_val,
+        dist_eps, eye and offset_z."""
+        fv = self.project_faces(vertices.detach(), faces, cams.detach())
+        return compute_raster_bins(
+            fv, self.render_size, TILE_SIZE, self.sigma_val, self.dist_eps,
+            self.resolved_mf_cap(fv.shape[1]), MAX_COVER)
+
+    def render(self, vertices, faces, cams, textures=None, mask_only=False,
+               rgb_geom_detach=False, tex_grads=True, bins=None):
         """vertices [B,V,3]; faces [F,3]; cams [B,7]; textures [B,F,T2,3]
-        or None. Returns RasterOut with rgba [B,H,W,4] at image_size."""
+        or None. Returns RasterOut with rgba [B,H,W,4] at image_size; its
+        p2f is zeros (no route writes p2f yet).
+
+        mask_only, rgb_geom_detach, tex_grads and bins act on the kernels'
+        route (ops/raster_kernel.py::soft_rasterize_fwd); the plain route
+        renders every face and differentiates exactly, and reads
+        mask_only only."""
         fv = self.project_faces(vertices, faces, cams).contiguous()
-        if textures is not None:
+        identity_light = (self.ambient_intensity == 1.0
+                          and self.directional_intensity == 0.0
+                          and tuple(self.light_color) == (1.0, 1.0, 1.0))
+        if textures is not None and not identity_light:
             textures = apply_lighting(
                 textures, surface_normals(fv), self.ambient_intensity,
                 self.directional_intensity, self.light_direction,
-                self.light_color).contiguous()
-        out = soft_rasterize_fwd(
-            fv, textures, image_size=self.render_size,
-            background_color=tuple(self.background_color),
-            sigma_val=self.sigma_val, dist_eps=self.dist_eps,
-            gamma_val=self.gamma_val, aggr_func_rgb=self.render_type,
-            mf_cap=self.resolved_mf_cap(fv.shape[1]))
+                self.light_color)
+        if textures is not None:
+            textures = textures.contiguous()
+        kw = dict(image_size=self.render_size,
+                  background_color=tuple(self.background_color),
+                  sigma_val=self.sigma_val, dist_eps=self.dist_eps,
+                  gamma_val=self.gamma_val, aggr_func_rgb=self.render_type,
+                  mask_only=mask_only)
+        if self.uses_kernel(fv.device):
+            out = soft_rasterize_fwd(
+                fv, textures, mf_cap=self.resolved_mf_cap(fv.shape[1]),
+                rgb_geom_detach=rgb_geom_detach, tex_grads=tex_grads,
+                bins=bins, **kw)
+        else:
+            out = soft_rasterize(fv, textures, **kw)
         if self.anti_aliasing:
             B, C = out.rgba.shape[0], out.rgba.shape[-1]
             S = self.image_size

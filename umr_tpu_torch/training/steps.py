@@ -1,0 +1,354 @@
+"""The stage-2 training step (port of umr_tpu/training/steps.py::
+build_s2_step): MeshNet-s2 forward, every loss of the stage-2 objective,
+the three rasterizer passes, and one optimizer update over model and
+discriminator.
+
+Optimizer (the reference's, ref train_utils.py:172-194): one Adam
+(beta1 = cfg.beta1, beta2 = 0.999), or SGD with momentum beta1 under
+use_sgd, over the model and discriminator parameters, lr = base /
+(1 + 5e-4 * iteration). optim_bs > 1 accumulates: the update every
+optim_bs batches uses the mean of their gradients (the JAX package's
+documented deviation from the reference, which discards all but the
+last batch's). mean_v is a buffer: no optimizer touches it. BatchNorm
+uses batch statistics in train mode (running stats at momentum 0.1, the
+flax 0.9).
+
+The rasterizer passes of one step, on the kernels' route (ops/
+raster_kernel.py; the card, or the CPU with impl="kernel"):
+  1. the fused silhouette + texture render of the B*K hypothesis fold,
+     rgb gradients to the texels only: forward and backward kernel;
+  2. the hard visibility render at the sampled camera, forward only,
+     on `main_bins`, the step's one binning of that geometry;
+  3. the semantic part renders and the GAN's unseen view merged into one
+     (n_groups + 1) * B render with constant textures (tex_grads=False),
+     on main_bins repeated and the unseen view's own bins: forward and
+     backward kernel.
+On the plain route (CPU, impl="auto") the renders are the plain forward
+under exact autograd, unmerged, as the JAX package's XLA paths.
+
+Random draws (the VAE noise, the camera hypothesis, the GAN view angles)
+come from the state's torch.Generator unless injected (`draws`).
+
+The step's layers are torch.profiler ranges ("s2.forward" around the
+loss, inside it "s2.model", "s2.pass1_fold", "s2.lpips", "s2.pass2_hard"
+and "s2.pass3_merged"; then "s2.backward" and "s2.optimizer"), so a
+trace of the step splits its device time by layer (chip_smoke.py,
+experiments/profile_slice.py::range_split).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+import os
+import warnings
+from typing import Optional
+
+import torch
+from torch.profiler import record_function
+
+from ..config import Config, check_supported, resolve_device
+from ..losses.composite import (PartMatchingLoss, corr_loss_chamfer,
+                                gan_loss, multi_mask_texture_render)
+from ..losses.losses import (cam_diversity_loss, deform_l2reg, flatten_loss,
+                             laplacian_loss, neg_iou_loss, tex_cycle_loss,
+                             texture_dt_loss)
+from ..models import Discriminator, LPIPSAlex, MeshNet, init_weights, symmetrize
+from ..models.weights import WEIGHTS_DIR, load_lpips_npz, load_resnet18_npz
+from ..ops.grid_sample import sample_textures
+from ..ops.quaternion import rotate_cam
+from ..renderer import SoftRenderer
+
+# settings that decide a render's bins: renders that agree on them can
+# share one binning
+_BIN_FIELDS = ("image_size", "anti_aliasing", "sigma_val", "dist_eps", "eye",
+               "offset_z")
+
+
+@dataclasses.dataclass
+class TrainState:
+    step: int                        # batches taken
+    updates: int                     # optimizer updates made
+    model: MeshNet
+    disc: Discriminator
+    lpips: LPIPSAlex                 # frozen
+    optimizer: torch.optim.Optimizer
+    generator: torch.Generator       # the step's random draws
+
+
+def learning_rate(cfg: Config, updates):
+    """lr = base / (1 + 5e-4 * iteration): the iteration counts batches,
+    so with accumulation it is updates * optim_bs."""
+    return cfg.learning_rate / (1.0 + 5e-4 * updates * max(cfg.optim_bs, 1))
+
+
+def make_optimizer(cfg: Config, params):
+    if cfg.use_sgd:
+        return torch.optim.SGD(params, lr=cfg.learning_rate,
+                               momentum=cfg.beta1)
+    return torch.optim.Adam(params, lr=cfg.learning_rate,
+                            betas=(cfg.beta1, 0.999), eps=1e-8)
+
+
+def _renderers(cfg: Config, impl):
+    common = dict(image_size=cfg.image_size,
+                  anti_aliasing=cfg.anti_aliasing, impl=impl)
+    renderer = SoftRenderer(render_type=cfg.renderer_type, **common)
+    return (renderer, renderer.ambient_light_only(),
+            SoftRenderer(render_type="hard", **common))
+
+
+def _same_bins(a, b):
+    return all(getattr(a, f) == getattr(b, f) for f in _BIN_FIELDS)
+
+
+def normalize_part_segs(part_prob, masks):
+    """Part maps [B,H,W,C] times the mask, each channel divided by its
+    max -> [B,C,H,W]."""
+    p = part_prob.permute(0, 3, 1, 2) * masks[:, None]
+    return p / p.amax(dim=(2, 3), keepdim=True).clamp_min(1e-12)
+
+
+@torch.no_grad()
+def uv_flow_area(uvimage_pred, grid=16):
+    """Flow-health metric: mean fraction of a grid x grid partition of
+    the image that the UV flow image [B,h,w,2] samples."""
+    cells = ((uvimage_pred + 1.0) * (0.5 * grid)).to(torch.int32).clamp(
+        0, grid - 1)
+    flat = (cells[..., 1] * grid + cells[..., 0]).reshape(
+        uvimage_pred.shape[0], -1).long()
+    occ = uvimage_pred.new_zeros((uvimage_pred.shape[0], grid * grid))
+    occ.scatter_(1, flat, 1.0)
+    return occ.mean(dim=-1).mean()
+
+
+@torch.no_grad()
+def _init_disc(disc, generator):
+    """Seeded lecun-normal weights (the flax default's scale), zero bias."""
+    for mod in disc.modules():
+        if isinstance(mod, (torch.nn.Conv2d, torch.nn.Linear)):
+            fan_in = math.prod(mod.weight.shape[1:])
+            mod.weight.copy_(torch.randn(mod.weight.shape,
+                                         generator=generator)
+                             / math.sqrt(fan_in))
+            mod.bias.zero_()
+
+
+def build_s2_step(cfg: Config, template, part_loss: PartMatchingLoss,
+                  part_vert_idx, device=None, impl="auto"):
+    """Returns (model, disc, lpips, init_fn, step_fn) on `device` (the
+    card unless "cpu" is asked for).
+
+    part_vert_idx: 4 template-vertex index arrays (head, belly, neck,
+    back) of the semantic template. impl: the renderers' route ("kernel"
+    drives the card's route on the CPU; see renderer/soft_renderer.py).
+
+    init_fn(seed=cfg.seed, weights_dir) -> TrainState: seeded weights,
+    the ResNet-18 trunk and LPIPS from weights_dir where present.
+    step_fn(state, batch, draws=None) -> (state, scalars): batch is the
+    trainer's prepare_batch dict (numpy or tensors); draws optionally
+    injects 'eps' [B,z_dim], 'sample_inds' [B,1] and 'angles' [B]."""
+    if cfg.bf16:
+        raise NotImplementedError("--bf16 is not ported")
+    if cfg.cycle_soft_p2f:
+        raise NotImplementedError(
+            "--cycle_soft_p2f reads the soft renderer's p2f, which no "
+            "route of the port writes yet")
+    if not (cfg.use_texture and cfg.use_gan):
+        raise NotImplementedError("the port's s2 step trains with texture "
+                                  "and GAN (use_texture, use_gan)")
+    check_supported(cfg)
+    device = resolve_device(device)
+    model = MeshNet(template, input_size=cfg.image_size, nz_feat=cfg.nz_feat,
+                    z_dim=cfg.z_dim, num_hypo_cams=cfg.num_hypo_cams)
+    disc = Discriminator(lambda_=cfg.grl_wt, in_dim=3,
+                         img_size=cfg.image_size)
+    lpips = LPIPSAlex()
+    model, disc, lpips = (m.to(device) for m in (model, disc, lpips))
+    renderer, tex_renderer, hard_renderer = _renderers(cfg, impl)
+    dis_renderer = tex_renderer     # ambient only (ref train_s2.py:105-106)
+    faces = torch.as_tensor(template.faces, device=device)
+    lap = torch.as_tensor(template.laplacian, device=device)
+    flat_idx = torch.as_tensor(template.flatten_idx, device=device)
+    pr = part_loss.renderer
+    part_bins_ok = _same_bins(pr, hard_renderer)
+    # the merged part + GAN render draws the part groups with dis_renderer
+    # on hard_renderer's bins: the part renderer must render as
+    # dis_renderer does, and all three must bin alike
+    part_render_eq = (part_bins_ok and pr == dis_renderer
+                      and _same_bins(hard_renderer, dis_renderer))
+
+    def init_fn(seed=None, weights_dir=WEIGHTS_DIR):
+        seed = cfg.seed if seed is None else seed
+        g = torch.Generator().manual_seed(seed)
+        init_weights(model, g)
+        _init_disc(disc, g)
+        trunk = os.path.join(weights_dir, "resnet18_params.npz")
+        if os.path.exists(trunk):
+            sd = load_resnet18_npz(trunk, os.path.join(
+                weights_dir, "resnet18_stats.npz"))
+            model.load_state_dict(sd, strict=False)
+        else:
+            warnings.warn(f"{trunk} not found: the encoder trunk is "
+                          "random-init (the reference's is ImageNet-"
+                          "pretrained)")
+        lp = os.path.join(weights_dir, "lpips_alex.npz")
+        if os.path.exists(lp):
+            load_lpips_npz(lpips, lp)
+        else:
+            warnings.warn(f"{lp} not found: LPIPS runs on a random AlexNet")
+        opt = make_optimizer(cfg, list(model.parameters())
+                             + list(disc.parameters()))
+        gen = torch.Generator(device).manual_seed(seed)
+        return TrainState(step=0, updates=0, model=model, disc=disc,
+                          lpips=lpips, optimizer=opt, generator=gen)
+
+    def loss_fn(state: TrainState, batch, draws):
+        with record_function("s2.model"):
+            outputs = model(batch["input_img"], eps=draws.get("eps"),
+                            sample_inds=draws.get("sample_inds"),
+                            generator=state.generator)
+        imgs, masks = batch["img"], batch["mask"]
+        B = imgs.shape[0]
+        mean_shape = symmetrize(model.mean_v, template)
+        pred_vs = mean_shape[None] + symmetrize(outputs["delta_v"], template)
+        proj_cam = outputs["cam"].detach()
+        cams_all = outputs["cam_hypotheses"]
+        cam_probs = outputs["cam_probs"]
+        K = cams_all.shape[1]
+
+        sc = {"cam_div_loss": cam_diversity_loss(cam_probs)}
+        # pass 2 and the part renders of pass 3 draw the same geometry at
+        # proj_cam: bin it once (kernels' route only; plain renders every
+        # face)
+        main_bins = None
+        if hard_renderer.uses_kernel(device):
+            with record_function("s2.pass2_hard"):
+                main_bins = hard_renderer.compute_bins(pred_vs, faces,
+                                                       proj_cam)
+
+        tex_flow = outputs["tex_flow"]
+        tex = sample_textures(tex_flow, imgs)
+        T = tex.shape[2]
+        tex = tex.reshape(B, tex.shape[1], T * T, 3)
+        # pass 1: silhouettes (live geometry) + textures (texels only)
+        with record_function("s2.pass1_fold"):
+            mask_all_hypo, texture_pred = multi_mask_texture_render(
+                renderer, tex_renderer, pred_vs, faces, cams_all, tex,
+                chunks=cfg.hypo_render_chunks)
+
+        masks_rep = masks.repeat_interleave(K, 0)
+        mloss = neg_iou_loss(mask_all_hypo, masks_rep, avg=False)
+        sc["mask_loss"] = (mloss.reshape(B, K) * cam_probs).sum(1).mean()
+        sc["tri_loss"] = laplacian_loss(pred_vs, lap).mean()
+        sc["flatten_loss"] = flatten_loss(pred_vs, flat_idx).mean()
+        sc["deform_loss"] = deform_l2reg(outputs["delta_v"])
+        total = (sc["mask_loss"] * cfg.mask_loss_wt
+                 + sc["tri_loss"] * cfg.triangle_reg_wt
+                 + sc["flatten_loss"] * cfg.flatten_reg_wt
+                 + sc["deform_loss"] * cfg.deform_reg_wt
+                 + sc["cam_div_loss"] * cfg.ent_loss_wt)
+
+        # perceptual loss, hypothesis-weighted by the detached probs; the
+        # predicted masks stay live
+        pred_masked = texture_pred * mask_all_hypo[..., None]
+        gt_masked = imgs.repeat_interleave(K, 0) * masks_rep[..., None]
+        with record_function("s2.lpips"):
+            dist = state.lpips(2 * pred_masked - 1, 2 * gt_masked - 1)
+        sc["tex_loss"] = (dist.reshape(B, K)
+                          * cam_probs.detach()).sum(1).mean()
+        sc["tex_dt_loss"] = texture_dt_loss(tex_flow, batch["dts_barrier"])
+        # pass 2: hard visibility at the sampled camera. Its p2f is all
+        # zeros (the reference's s2 quirk: the cycle target comes from the
+        # hard renderer, which writes no p2f)
+        with record_function("s2.pass2_hard"):
+            hard_out = hard_renderer.render(pred_vs.detach(), faces,
+                                            proj_cam, bins=main_bins)
+        face_ids = hard_out.aggr[:, 1].reshape(B, -1)
+        sc["tex_cycle_loss"] = tex_cycle_loss(
+            tex_flow, hard_out.p2f.detach(), face_ids.detach())[0]
+        sc["uv_flow_area"] = uv_flow_area(outputs["uvimage_pred"])
+        total = (total + sc["tex_loss"] * cfg.tex_loss_wt
+                 + sc["tex_dt_loss"] * cfg.tex_dt_loss_wt
+                 + sc["tex_cycle_loss"] * cfg.tex_cycle_loss_wt)
+
+        part_segs = normalize_part_segs(batch["part_prob"], masks)
+        angles = draws.get("angles")
+        if angles is None:
+            angles = torch.randint(0, 180, (B,), generator=state.generator,
+                                   device=device)
+        random_cams = rotate_cam(proj_cam, angles)
+        # pass 3: the part groups and the GAN's unseen view in one render
+        with record_function("s2.pass3_merged"):
+            if main_bins is not None and part_render_eq:
+                groups = part_loss.texture_groups(B)
+                n_g = len(groups)
+                gan_bins = dis_renderer.compute_bins(pred_vs, faces,
+                                                     random_cams)
+                bins_cat = tuple(torch.cat([m] * n_g + [g], 0)
+                                 for m, g in zip(main_bins, gan_bins))
+                rgb = dis_renderer.render(
+                    torch.cat([pred_vs] * (n_g + 1), 0), faces,
+                    torch.cat([proj_cam] * n_g + [random_cams], 0),
+                    torch.cat(groups + [tex.detach()], 0),
+                    tex_grads=False, bins=bins_cat).rgba[..., :3]
+                projs = part_loss.projs_from_group_renders(
+                    [rgb[i * B:(i + 1) * B] for i in range(n_g)])
+                unseen = rgb[n_g * B:]
+                p_loss = part_loss.loss_from_projs(projs, part_segs)[0]
+            else:
+                unseen = dis_renderer.render(pred_vs, faces, random_cams,
+                                             tex.detach(),
+                                             tex_grads=False).rgba[..., :3]
+                p_loss = part_loss(pred_vs, faces, proj_cam, part_segs,
+                                   bins=main_bins if part_bins_ok else None)[0]
+
+        sc["gan_loss"], sc["acc_gan"] = gan_loss(state.disc,
+                                                 batch["real_imgs"], unseen)
+        total = total + sc["gan_loss"] * cfg.gan_loss_wt
+        sc["part_loss"] = p_loss
+        total = total + p_loss * cfg.prob_loss_wt
+
+        mean_rep = mean_shape[None].expand((B,) + mean_shape.shape)
+        pts = [batch[k].repeat_interleave(K, 0)
+               for k in ("head_points", "belly_points", "neck_points",
+                         "back_points")]
+        corr = corr_loss_chamfer(
+            renderer.project_points, part_vert_idx, pts,
+            mean_rep.repeat_interleave(K, 0), cams_all.reshape(B * K, 7),
+            avg=False)[0]
+        sc["corr_loss"] = (corr.reshape(B, K)
+                           * cam_probs.detach()).sum(1).mean()
+        total = total + sc["corr_loss"] * cfg.vertex_loss_wt
+        sc["total_loss"] = total
+        return total, sc
+
+    def step_fn(state: TrainState, batch, draws: Optional[dict] = None):
+        batch = {k: torch.as_tensor(v, device=device)
+                 for k, v in batch.items()}
+        model.train()
+        disc.train()
+        opt = state.optimizer
+        k = max(cfg.optim_bs, 1)
+        if state.step % k == 0:
+            opt.zero_grad(set_to_none=True)
+        with record_function("s2.forward"):
+            total, sc = loss_fn(state, batch, draws or {})
+        with record_function("s2.backward"):
+            total.backward()
+        state.step += 1
+        if state.step % k == 0:
+            with record_function("s2.optimizer"):
+                if k > 1:
+                    for group in opt.param_groups:
+                        for p in group["params"]:
+                            if p.grad is not None:
+                                p.grad.div_(k)
+                for group in opt.param_groups:
+                    group["lr"] = learning_rate(cfg, state.updates)
+                opt.step()
+            state.updates += 1
+        return state, {name: v.detach() for name, v in sc.items()}
+
+    return model, disc, lpips, init_fn, step_fn
+
