@@ -1,10 +1,13 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU (H100): builds the CUDA
-rasterizer kernels (forward and backward) from csrc/, holds each against
-its plain version at the main paths' shapes and against the golden
-oracle, drives the inference slice (test_iou.run at full s2 width, batch
-32; demo.render_panels) and the training slice (train_s2.run at full s2
-width, batch 16, 6 steps), checks that each path went through the
-kernels, and times kernels, plain versions and the training step.
+rasterizer kernels (forward, with its p2f instance, and backward) from
+csrc/, holds each against its plain version at the main paths' shapes and
+against the golden oracle, drives the inference slice (test_iou.run at
+full s2 width, batch 32; demo.render_panels), the stage-2 training slice
+(train_s2.run at full s2 width, batch 16, 6 steps; one step with
+cycle_soft_p2f) and the stage-1 training slice (train_s1.run at full s1
+width, batch 64, 2 epochs of 3 batches with two template updates), checks
+that each path went through the kernels, and times kernels, plain
+versions and the training steps.
 
   python3 chip_smoke.py
 
@@ -47,6 +50,12 @@ TIMED_STEPS = 5          # then 1 warm-up and these, timed with CUDA events
 FOLD_SLICE = 8           # images of the fold (128) and of the merged pass
                          # (48) the plain backward takes
 TRACE_STEPS = 3          # steps traced for the step's split
+# the stage-1 slice: train_s1.run at the Config default batch (64) and full
+# width, 2 epochs of 3 batches with the template updated after each
+S1_BATCH = 64
+S1_BATCHES = 3
+S1_EPOCHS = 2
+P2F_SLICE = 8            # images of the s1 fused render the plain p2f takes
 
 RGBA_ATOL = 1e-3      # kernel vs plain: reductions run in another order
 AGGR_RTOL = 1e-4      # softmax (sum, max)
@@ -61,6 +70,10 @@ HARD_SHARE = 0.999    # face ids and depths equal on covered pixels
 # at once
 BWD_RTOL, BWD_ATOL = 1e-4, 1e-5
 GOLDEN_BWD_REL = 1e-3  # as tests/test_kernel_interpret.py holds Pallas
+# p2f kernel vs the plain version at face_chunk=1 (the same rule) and the
+# golden oracle, in grid units (p2f lies in [-1, 1]): the kernel sums each
+# face's weights per warp, block and tile with atomics, in another order
+P2F_ATOL = 1e-4
 
 # the bound: H100 SXM datasheet peaks, and the operations that this run's
 # (pixel, binned face) pairs make the kernels do, counted from the source
@@ -87,6 +100,9 @@ OPS_BWD_Z = 30     # backward, depth in range: alpha term and the x, y
 OPS_BWD_SOFT = 6   # its softmax weight, where texels or depths get grads
 OPS_BWD_TEX = 7    # its texel lanes (:134-139)
 OPS_BWD_ZLANE = 26  # its colour term and z lanes (:141-154)
+OPS_P2F = 5        # forward with p2f, depth in range: contrib * gx and
+                   # * gy with their sums, the weight sum (raster_fwd.cu:
+                   # 161-166; the per-face warp reductions left out)
 
 
 def phase(name):
@@ -213,9 +229,10 @@ def lanes(opts):
             not (mask_only or opts.get("rgb_geom_detach", False)))
 
 
-def raster_bound(counts, fv, tex, bins, S, opts=None):
-    """(bound ms, bound_by) of one forward render (opts None) or of its
-    backward under opts, from its pair_counts."""
+def raster_bound(counts, fv, tex, bins, S, opts=None, p2f=False):
+    """(bound ms, bound_by) of one forward render (opts None; with p2f,
+    the p2f instance's) or of its backward under opts, from its
+    pair_counts."""
     slots, box, passed, in_depth = counts
     ops = slots * OPS_BOX + box * OPS_DIST + passed * OPS_FRAG
     inputs = 4 * (fv.numel() + tex.numel() + bins[0].numel()
@@ -223,6 +240,9 @@ def raster_bound(counts, fv, tex, bins, S, opts=None):
     img = 4 * fv.shape[0] * S * S * (4 + 2)            # rgba, aggr
     if opts is None:
         ops += passed * (OPS_TEXEL + OPS_FWD_PASS) + in_depth * OPS_FWD_Z
+        if p2f:
+            ops += in_depth * OPS_P2F
+            img += 4 * fv.shape[0] * fv.shape[1] * 2   # p2f [B, F, 2]
         return bound(ops, inputs + img)
     want_tex, want_z = lanes(opts)
     rgb = want_tex or want_z
@@ -289,6 +309,84 @@ def plain_grads(fv, tex, g, kw, opts):
     return soft_rasterize_bwd(fv, tex, ref.rgba, ref.aggr, g, **opts, **bkw)
 
 
+def trace_split(one_step, prefix, step_ms, smi, label):
+    """A trace of TRACE_STEPS calls of one_step (a training step): device
+    time per step by the step's profiler ranges (training/steps.py), the
+    rasterizer kernels by the images of their grid, the copies, and the
+    device's idle share of the untraced step (step_ms). Prints it and
+    returns it as a dict."""
+    from umr_tpu_torch.experiments.profile_slice import (
+        busy_us, device_ops, launch_times, range_split, trace_events)
+
+    events, wall_us = trace_events(one_step, TRACE_STEPS)
+    split = range_split(events, prefix, TRACE_STEPS)
+    launch = launch_times(events)
+    raster_split, raster_seen = {}, [0, 0]
+    for e in events:
+        name_ = e.get("name", "")
+        if e.get("cat") == "kernel" and "raster_" in name_:
+            key = ("raster_fwd" if "raster_fwd" in name_ else "raster_bwd")
+            key += f" {e.get('args', {}).get('grid', [0, 0])[1]} images"
+            raster_split[key] = (raster_split.get(key, 0.0)
+                                 + float(e["dur"]) / TRACE_STEPS / 1e3)
+            raster_seen[0] += e.get("args", {}).get("correlation") in launch
+            raster_seen[1] += 1
+    # device busy time per step against the untraced step: the profiler
+    # slows the host, not the device
+    busy_ms = busy_us(device_ops(events)) / TRACE_STEPS / 1e3
+    traced_ms = wall_us / TRACE_STEPS / 1e3
+    copy_ms = {c: sum(d for _, _, d in device_ops(events, (c,)))
+               / TRACE_STEPS / 1e3 for c in ("gpu_memcpy", "gpu_memset")}
+    idle = 1.0 - busy_ms / step_ms
+    print(f"{label} split, device ms per step by profiler range "
+          f"({TRACE_STEPS} traced steps): " + ", ".join(
+              f"{k} {v:.2f}" for k, v in sorted(split.items()))
+          + f"; sum {sum(split.values()):.2f}; rasterizer kernels "
+          f"({raster_seen[0]} of {raster_seen[1]} with their launch call "
+          "in the trace): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in sorted(raster_split.items()))
+          + f"; copies {copy_ms['gpu_memcpy']:.2f}, memsets "
+          f"{copy_ms['gpu_memset']:.2f}; device busy {busy_ms:.2f} ms per "
+          "step, idle share "
+          f"{idle:.3f} of the untraced step's {step_ms:.2f} ms (traced "
+          f"steps {traced_ms:.2f} ms) [{smi}]", flush=True)
+    assert split and busy_ms > 0, "the trace holds no device time"
+    return dict(split=split, raster=raster_split, busy_ms=busy_ms,
+                traced_ms=traced_ms, copy_ms=copy_ms, idle=idle)
+
+
+def timed_steps(step_fn, state, batches, n, *args):
+    """(median ms, all ms, state) of n steps after 1 warm-up step, each
+    timed with CUDA events; every step's total_loss must be finite."""
+    times = []
+    for i in range(n + 1):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, sc = step_fn(state, batches[i % len(batches)], *args)
+        end.record()
+        torch.cuda.synchronize()
+        assert math.isfinite(sc["total_loss"].item())
+        if i:                                        # step 0 is the warm-up
+            times.append(start.elapsed_time(end))
+    return float(np.median(times)), times, state
+
+
+def p2f_check(name, out, ref):
+    """The p2f instance's p2f against the plain version's (the same rule),
+    in grid units; returns the largest |diff|."""
+    diff = (out.p2f - ref.p2f).abs()
+    err = diff.max().item()
+    q = torch.quantile(diff.flatten().double(), 0.999).item()
+    nz = int((ref.p2f.abs().sum(-1) > 0).sum())
+    msg = (f"{name}: p2f max |diff| {err:.3e} grid units (99.9th percentile "
+           f"{q:.3e}) over {diff.shape[0] * diff.shape[1]} faces, {nz} "
+           f"with weight (<= {P2F_ATOL})")
+    print(msg, flush=True)
+    assert err <= P2F_ATOL and nz > 0, msg
+    return err
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device visible")
@@ -297,9 +395,7 @@ def main():
     from umr_tpu_torch.config import Config
     from umr_tpu_torch.data import synthetic_batch
     from umr_tpu_torch.experiments import demo, test_iou
-    from umr_tpu_torch.experiments.profile_slice import (
-        busy_us, device_ops, launch_times, random_model, range_split,
-        trace_events)
+    from umr_tpu_torch.experiments.profile_slice import random_model
     from umr_tpu_torch.mesh import build_template
     from umr_tpu_torch.models import symmetrize
     from umr_tpu_torch.ops import raster_kernel
@@ -596,27 +692,17 @@ def main():
              - fresh.shape_predictor.pred_layer.weight).abs().max().item()
     print(f"shape head moved by up to {moved:.3e} from its seeded init")
     assert moved > 0
-    first, last = trainer.history[0], trainer.history[-1]
+    first_s2, last = trainer.history[0], trainer.history[-1]
     print("step 1 scalars: " + ", ".join(f"{k} {v:.4f}"
-                                          for k, v in first.items()))
+                                          for k, v in first_s2.items()))
     print(f"step {TRAIN_STEPS} total_loss {last['total_loss']:.4f}")
 
-    times = []
     raster_kernel.LAUNCHES = raster_kernel.BWD_LAUNCHES = 0
-    for i in range(TIMED_STEPS + 1):
-        db = prepare_batch(tloader[i % TRAIN_STEPS])
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        state, sc = trainer.step_fn(state, db)
-        end.record()
-        torch.cuda.synchronize()
-        assert math.isfinite(sc["total_loss"].item())
-        if i:                                        # step 0 is the warm-up
-            times.append(start.elapsed_time(end))
+    step_ms, times, state = timed_steps(
+        trainer.step_fn, state, [prepare_batch(b) for b in tloader],
+        TIMED_STEPS)
     assert (raster_kernel.LAUNCHES, raster_kernel.BWD_LAUNCHES) == (
         3 * (TIMED_STEPS + 1), 2 * (TIMED_STEPS + 1))
-    step_ms = float(np.median(times))
     imgs_s = TRAIN_BATCH / (step_ms / 1e3)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     print(f"s2 training step, batch {TRAIN_BATCH}: median {step_ms:.2f} ms "
@@ -746,49 +832,223 @@ def main():
               f"{ms_p:.1f} ms, bound {sb[0]:.3f} ms ({sb[1]}) [{smi}]")
 
     # the step's split, from a trace of the step itself (after the timed
-    # steps: the profiler leaves host overhead on later launches): device
-    # time by the step's profiler ranges (training/steps.py), the
-    # rasterizer kernels by the images of their grid, and the device's
-    # idle share of the traced steps
+    # steps: the profiler leaves host overhead on later launches)
     state_box = [state]
 
     def one_step():
         state_box[0], _ = trainer.step_fn(state_box[0], prepare_batch(
             tloader[0]))
 
-    events, wall_us = trace_events(one_step, TRACE_STEPS)
-    split = range_split(events, "s2.", TRACE_STEPS)
-    launch = launch_times(events)
-    raster_split, raster_seen = {}, [0, 0]
-    for e in events:
-        name_ = e.get("name", "")
-        if e.get("cat") == "kernel" and "raster_" in name_:
-            key = ("raster_fwd" if "raster_fwd" in name_ else "raster_bwd")
-            key += f" {e.get('args', {}).get('grid', [0, 0])[1]} images"
-            raster_split[key] = (raster_split.get(key, 0.0)
-                                 + float(e["dur"]) / TRACE_STEPS / 1e3)
-            raster_seen[0] += e.get("args", {}).get("correlation") in launch
-            raster_seen[1] += 1
-    # device busy time per step against the untraced step: the profiler
-    # slows the host, not the device
-    busy_ms = busy_us(device_ops(events)) / TRACE_STEPS / 1e3
-    traced_ms = wall_us / TRACE_STEPS / 1e3
-    copy_ms = {c: sum(d for _, _, d in device_ops(events, (c,)))
-               / TRACE_STEPS / 1e3 for c in ("gpu_memcpy", "gpu_memset")}
-    idle = 1.0 - busy_ms / step_ms
-    print(f"step split, device ms per step by profiler range ({TRACE_STEPS} "
-          "traced steps): " + ", ".join(
-              f"{k} {v:.2f}" for k, v in sorted(split.items()))
-          + f"; sum {sum(split.values()):.2f}; rasterizer kernels "
-          f"({raster_seen[0]} of {raster_seen[1]} with their launch call "
-          "in the trace): "
-          + ", ".join(f"{k} {v:.3f}" for k, v in sorted(raster_split.items()))
-          + f"; copies {copy_ms['gpu_memcpy']:.2f}, memsets "
-          f"{copy_ms['gpu_memset']:.2f}; device busy {busy_ms:.2f} ms per "
-          "step, idle share "
-          f"{idle:.3f} of the untraced step's {step_ms:.2f} ms (traced "
-          f"steps {traced_ms:.2f} ms) [{smi}]")
-    assert split and busy_ms > 0, "the trace holds no device time"
+    s2_trace = trace_split(one_step, "s2.", step_ms, smi, "step")
+    split, raster_split = s2_trace["split"], s2_trace["raster"]
+    busy_ms, traced_ms = s2_trace["busy_ms"], s2_trace["traced_ms"]
+    copy_ms, idle = s2_trace["copy_ms"], s2_trace["idle"]
+    del trainer, state, state_box, model, out, tex, fold_fv, fold_tex
+    del mrg_fv, mrg_tex, fold_bins, mrg_bins
+    torch.cuda.empty_cache()
+
+    phase("9. p2f: the forward kernel's p2f instance vs the plain version "
+          "(face_chunk=1, the kernel's rule) and the golden oracle")
+    # the plain version one face at a time over the whole image
+    pkw = dict(rkw, face_chunk=1, pixel_rows_per_block=S, need_p2f=True)
+    p2f_err = 0.0
+    for seed in (1, 3):      # phase 3's scenes, every tile within the cap
+        fv_s, tex_s = sphere_scenes(rend, template, SCENE_B, 36, seed, dev)
+        most = check_cap(fv_s, "p2f sphere scene")
+        with torch.no_grad():
+            raster_kernel.P2F_LAUNCHES = 0
+            out = raster_kernel.soft_rasterize_fwd(fv_s, tex_s, mf_cap=cap,
+                                                   need_p2f=True, **rkw)
+            torch.cuda.synchronize()
+            assert raster_kernel.P2F_LAUNCHES == 1
+            ref = soft_rasterize(fv_s, tex_s, **pkw)
+        p2f_err = max(p2f_err, p2f_check(
+            f"sphere scenes B={SCENE_B} S={S} T2=36 F={F} seed {seed} "
+            f"(fullest tile {most})", out, ref))
+    _, g_p2f, _ = golden_soft_rasterize(gf, gt, **gkw)
+    out = raster_kernel.soft_rasterize_fwd(
+        torch.as_tensor(gf, device=dev), torch.as_tensor(gt, device=dev),
+        mf_cap=32, need_p2f=True, **gkw)
+    p2f_golden = float(np.abs(out.p2f.cpu().numpy() - g_p2f).max())
+    msg = (f"golden oracle p2f: max |diff| {p2f_golden:.3e} grid units "
+           f"(<= {P2F_ATOL})")
+    print(msg, flush=True)
+    assert p2f_golden <= P2F_ATOL, msg
+
+    phase("10. the stage-1 slice: train_s1.run (batch 64, 256^2 with "
+          "512^2 AA renders, F=1280, T2=36; 2 epochs of 3 batches, the "
+          "template updated after each)")
+    from umr_tpu_torch.experiments import train_s1
+
+    s1cfg = train_s1.config([
+        "--batch_size", str(S1_BATCH), "--image_size", str(IMAGE_SIZE),
+        "--subdivide", str(SUBDIVIDE), "--tex_size", "6",
+        "--num_epochs", str(S1_EPOCHS), "--update_template_freq", "1",
+        "--print_freq", "1"])
+    s1loader = [synthetic_batch(data_rng, S1_BATCH, IMAGE_SIZE)
+                for _ in range(S1_BATCHES)]
+    n1 = S1_BATCHES * S1_EPOCHS
+    torch.cuda.reset_peak_memory_stats()
+    raster_kernel.LAUNCHES = raster_kernel.BWD_LAUNCHES = 0
+    raster_kernel.P2F_LAUNCHES = 0
+    t0 = time.perf_counter()
+    s1_trainer = train_s1.run(s1cfg, s1loader, device=dev)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    s1_fwd, s1_bwd, s1_p2f = (raster_kernel.LAUNCHES,
+                              raster_kernel.BWD_LAUNCHES,
+                              raster_kernel.P2F_LAUNCHES)
+    s1_state = s1_trainer.state
+    print(f"train_s1.run: {s1_state.step} steps in {run_s:.2f} s incl. "
+          f"set-up and {len(s1_trainer.template_updates)} template updates "
+          f"{s1_trainer.template_updates} (epoch, images); raster_fwd "
+          f"launches {s1_fwd} ({s1_p2f} with p2f), raster_bwd launches "
+          f"{s1_bwd} (expected 3 (1 with p2f) and 2 per step)")
+    assert s1_state.step == s1_state.updates == n1
+    assert (s1_fwd, s1_bwd, s1_p2f) == (3 * n1, 2 * n1, n1)
+    assert s1_trainer.template_updates == [
+        (e, S1_BATCH * S1_BATCHES) for e in range(S1_EPOCHS)]
+    for sc in s1_trainer.history:
+        assert all(math.isfinite(v) for v in sc.values()), sc
+        assert sc["tex_cycle_loss"] > 0, sc
+    moved = (s1_state.model.mean_v.cpu()
+             - torch.as_tensor(template.mean_v_init)).abs().max().item()
+    print(f"template mean_v moved by up to {moved:.3e}")
+    assert moved > 0
+    first, last = s1_trainer.history[0], s1_trainer.history[-1]
+    print("s1 step 1 scalars: " + ", ".join(f"{k} {v:.4f}"
+                                             for k, v in first.items()))
+    print(f"s1 step {n1} total_loss {last['total_loss']:.4f}")
+
+    raster_kernel.LAUNCHES = raster_kernel.BWD_LAUNCHES = 0
+    raster_kernel.P2F_LAUNCHES = 0
+    s1_batches = [prepare_batch(b, s1cfg.use_scops, s1cfg.use_texture)
+                  for b in s1loader]
+    s1_ms, s1_times, s1_state = timed_steps(
+        s1_trainer.step_fn, s1_state, s1_batches, TIMED_STEPS,
+        float(S1_EPOCHS))
+    assert (raster_kernel.LAUNCHES, raster_kernel.BWD_LAUNCHES,
+            raster_kernel.P2F_LAUNCHES) == (
+        3 * (TIMED_STEPS + 1), 2 * (TIMED_STEPS + 1), TIMED_STEPS + 1)
+    s1_imgs = S1_BATCH / (s1_ms / 1e3)
+    s1_peak = torch.cuda.max_memory_allocated() / 1e9
+    print(f"s1 training step, batch {S1_BATCH}: median {s1_ms:.2f} ms over "
+          f"{TIMED_STEPS} steps after 1 warm-up (min {min(s1_times):.2f}, "
+          f"max {max(s1_times):.2f}), {s1_imgs:.1f} images/s; peak device "
+          f"memory {s1_peak:.2f} GB; TF32 off [{smi}]")
+    s1_box = [s1_state]
+
+    def one_s1_step():
+        s1_box[0], _ = s1_trainer.step_fn(s1_box[0], s1_batches[0],
+                                          float(S1_EPOCHS))
+
+    s1_trace = trace_split(one_s1_step, "s1.", s1_ms, smi, "s1 step")
+
+    phase("11. p2f at the s1 fused render's shape (64 images, 512^2, T2=36)")
+    model1 = s1_box[0].model
+    tex_r = SoftRenderer(image_size=IMAGE_SIZE).ambient_light_only()
+    db1 = {k: torch.as_tensor(v, device=dev) for k, v in s1_batches[0].items()}
+    with torch.no_grad():
+        model1.train()
+        o1 = model1(db1["input_img"],
+                    generator=torch.Generator(dev).manual_seed(4))
+        pv1 = (symmetrize(model1.mean_v, template)[None]
+               + symmetrize(o1["delta_v"], template))
+        fv1 = tex_r.project_faces(pv1, faces, o1["cam"]).contiguous()
+        tx1 = sample_textures(o1["tex_flow"], db1["img"]).reshape(
+            S1_BATCH, F, 36, 3).contiguous()
+        bins1 = compute_raster_bins(fv1, S, raster_kernel.TILE_SIZE,
+                                    rend.sigma_val, rend.dist_eps, cap,
+                                    raster_kernel.MAX_COVER)
+        del o1, pv1
+    # the main path's bins keep at most `cap` faces per tile, a face in at
+    # most MAX_COVER tiles per axis and 8 F entries per image, as the TPU
+    # kernel's; the plain version renders every face. At the s1 model's
+    # early meshes (large, crossing faces) those caps bite: count what
+    # they drop, and hold kernel and plain on bins that drop nothing
+    tx = S // raster_kernel.TILE_SIZE
+
+    def full_bins(fv_):
+        return compute_raster_bins(
+            fv_, S, raster_kernel.TILE_SIZE, rend.sigma_val, rend.dist_eps,
+            F, tx, F * tx * tx + 8 * tx * tx)
+
+    with torch.no_grad():
+        kept = (bins1[0] < F).sum(1)
+        every = (full_bins(fv1)[0] < F).sum(1)
+    dropped = every - kept
+    s1_over = int((dropped > 0).sum())
+    print(f"s1 fused render: {s1_over} of {S1_BATCH} images lose (face, "
+          f"tile) entries to the bins' caps ({int(dropped.sum())} of "
+          f"{int(every.sum())}; per image at most {int(dropped.max())}; "
+          f"fullest tile {int(fullest_tiles(fv1).max())} of cap {cap}): "
+          "the kernels render what the TPU kernel renders there", flush=True)
+    sel = torch.linspace(0, S1_BATCH - 1, P2F_SLICE,
+                         device=dev).round().long()
+    sl_fv, sl_tex = fv1[sel].contiguous(), tx1[sel].contiguous()
+    with torch.no_grad():
+        sl_bins = full_bins(sl_fv)
+        p2f_slice_ms, out = cuda_time(
+            lambda: raster_kernel.soft_rasterize_fwd(
+                sl_fv, sl_tex, mf_cap=F, bins=sl_bins, need_p2f=True,
+                **rkw), 20)
+        p2f_plain_ms, ref = cuda_time(
+            lambda: soft_rasterize(sl_fv, sl_tex, **pkw), 1, warmup=0)
+    name = (f"s1 fused slice: {P2F_SLICE} images (images {sel.tolist()}, "
+            "on bins that drop nothing)")
+    max_err = max(max_err, compare(name, out, ref, False))
+    p2f_err = max(p2f_err, p2f_check(name, out, ref))
+    slice_bound = raster_bound(
+        pair_counts(sl_fv, sl_bins, S, F, rend.sigma_val, rend.dist_eps),
+        sl_fv, sl_tex, sl_bins, S, p2f=True)
+    print(f"s1 fused slice: p2f kernel {p2f_slice_ms:.3f} ms, plain "
+          f"(face_chunk=1) {p2f_plain_ms:.1f} ms, bound "
+          f"{slice_bound[0]:.3f} ms ({slice_bound[1]}) [{smi}]")
+    del out, ref
+
+    # the p2f instance against the p2f-free one on the same 64 images and
+    # bins, in turns (without, with, with, without)
+    def fwd(need):
+        return lambda: raster_kernel.soft_rasterize_fwd(
+            fv1, tx1, mf_cap=cap, bins=bins1, need_p2f=need, **rkw)
+
+    with torch.no_grad():
+        turns = [cuda_time(fwd(need), 10)[0]
+                 for need in (False, True, True, False)]
+    ms_nop2f, ms_p2f = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+    s1_counts = counts_of(fv1, bins1)
+    b_p2f = raster_bound(s1_counts, fv1, tx1, bins1, S, p2f=True)
+    b_nop2f = raster_bound(s1_counts, fv1, tx1, bins1, S)
+    print(f"s1 fused render, {S1_BATCH} images (slots, pairs in bbox, past "
+          f"the threshold, in depth: {s1_counts}): forward kernel with p2f "
+          f"{ms_p2f:.3f} ms (bound {b_p2f[0]:.3f} ms, {b_p2f[1]}), without "
+          f"{ms_nop2f:.3f} ms (bound {b_nop2f[0]:.3f} ms); turns "
+          + ", ".join(f"{t:.3f}" for t in turns) + f" ms [{smi}]")
+    del fv1, tx1, bins1, model1, s1_trainer, s1_box, s1_state
+    torch.cuda.empty_cache()
+
+    phase("12. one s2 step with cycle_soft_p2f (batch 16, full s2 width)")
+    from umr_tpu_torch.training.steps import build_s2_step
+
+    _, _, _, init_c, step_c = build_s2_step(
+        tcfg.replace(cycle_soft_p2f=True), template, part_loss, pvi, dev)
+    state_c = init_c(tcfg.seed)
+    raster_kernel.LAUNCHES = raster_kernel.BWD_LAUNCHES = 0
+    raster_kernel.P2F_LAUNCHES = 0
+    state_c, sc = step_c(state_c, prepare_batch(tloader[0]))
+    torch.cuda.synchronize()
+    cyc_launches = (raster_kernel.LAUNCHES, raster_kernel.BWD_LAUNCHES,
+                    raster_kernel.P2F_LAUNCHES)
+    sc = {k: v.item() for k, v in sc.items()}
+    print(f"cycle_soft_p2f step: raster_fwd launches {cyc_launches[0]} "
+          f"({cyc_launches[2]} with p2f), raster_bwd launches "
+          f"{cyc_launches[1]} (expected 4 (1 with p2f) and 2); "
+          f"tex_cycle_loss {sc['tex_cycle_loss']:.4f} (flag off, step 1 of "
+          f"phase 7: {first_s2['tex_cycle_loss']:.4f}), total_loss "
+          f"{sc['total_loss']:.4f}")
+    assert cyc_launches == (4, 2, 1), cyc_launches
+    assert all(math.isfinite(v) for v in sc.values()), sc
+    del state_c, step_c
 
     record = {"kernels": [{
         "name": "raster_fwd", "route": "cuda", "source": KERNEL_SRC,
@@ -806,9 +1066,24 @@ def main():
         "fold_bound_ms": shapes["fold"]["fwd_bound"][0],
         "merged_ms": shapes["merged"]["fwd_ms"],
         "merged_bound_ms": shapes["merged"]["fwd_bound"][0],
+        "s1_launches": s1_fwd, "p2f_launches": s1_p2f,
+        "p2f_max_abs_err": p2f_err, "p2f_golden_err": p2f_golden,
+        "p2f_ms": ms_p2f, "p2f_bound_ms": b_p2f[0], "p2f_bound_by": b_p2f[1],
+        "p2f_free_ms": ms_nop2f, "p2f_free_bound_ms": b_nop2f[0],
+        "p2f_turns_ms": turns, "p2f_pair_counts": s1_counts,
+        "p2f_images_over_cap": s1_over,
+        "p2f_slice_ms": p2f_slice_ms, "p2f_slice_plain_ms": p2f_plain_ms,
+        "p2f_slice_bound_ms": slice_bound[0],
+        "s1_step_ms": s1_ms, "s1_images_per_s": s1_imgs,
+        "s1_peak_gb": s1_peak, "s1_split_ms": s1_trace["split"],
+        "s1_raster_ms": s1_trace["raster"], "s1_busy_ms": s1_trace["busy_ms"],
+        "s1_traced_ms": s1_trace["traced_ms"],
+        "s1_idle_share": s1_trace["idle"], "s1_copy_ms": s1_trace["copy_ms"],
+        "cycle_soft_p2f_launches": list(cyc_launches),
     }, {
         "name": "raster_bwd", "route": "cuda", "source": BWD_SRC,
         "replaces": BWD_TPU_KERNEL, "launches": train_bwd,
+        "s1_launches": s1_bwd,
         "max_abs_err": bwd_err, "max_rel_err": bwd_rel,
         "ms": slices["fold"]["ms"], "plain_ms": slices["fold"]["plain_ms"],
         "bound_ms": slices["fold"]["bound"][0],

@@ -107,6 +107,7 @@ def _loss_cases(rng, template):
                                m1, m2),
         "texture_dt": (tl.texture_dt_loss, jl.texture_dt_loss, flow, dt),
         "deform_l2reg": (tl.deform_l2reg, jl.deform_l2reg, verts),
+        "sym_reg": (tl.sym_reg, jl.sym_reg, verts),
         "cam_diversity": (tl.cam_diversity_loss, jl.cam_diversity_loss,
                           probs),
         "entropy": (tl.entropy_loss, jl.entropy_loss, probs),
@@ -132,7 +133,7 @@ def _loss_cases(rng, template):
 
 
 CASES = ["neg_iou", "neg_iou_per_sample", "texture_dt", "deform_l2reg",
-         "cam_diversity", "entropy", "laplacian", "flatten", "chamfer",
+         "sym_reg", "cam_diversity", "entropy", "laplacian", "flatten", "chamfer",
          "bce_with_logits", "batch_get_centers", "get_centers",
          "normalize_part_segs"]
 

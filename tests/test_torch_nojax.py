@@ -1,4 +1,5 @@
-"""The port (the inference slice and a training step) runs with jax,
+"""The port (the inference slice and a training step of each stage) runs
+with jax,
 flax, optax, orbax, absl and the JAX package umr_tpu unavailable, and no
 file of it (nor chip_smoke.py) imports them: the machine with the card
 has none of the first, and umr_tpu's __init__ imports jax wherever jax is
@@ -49,6 +50,14 @@ trainer = train_s2.run(cfg, [synthetic_batch(rng, 2, 32)], device="cpu",
                        semantic=(None, rng.randint(0, 5, (16, 32)), pvi))
 assert trainer.state.step == 1
 assert all(np.isfinite(v) for v in trainer.history[0].values())
+from umr_tpu_torch.experiments import train_s1
+cfg = train_s1.config(["--image_size", "32", "--batch_size", "2",
+                       "--anti_aliasing=false", "--subdivide", "2",
+                       "--tex_size", "2", "--nz_feat", "16", "--z_dim", "8",
+                       "--num_iter", "1", "--noprint_scalars"])
+trainer = train_s1.run(cfg, [synthetic_batch(rng, 2, 32)], device="cpu")
+assert trainer.state.step == 1
+assert all(np.isfinite(v) for v in trainer.history[0].values())
 loaded = [k for k, v in sys.modules.items()
           if v is not None and k.split(".")[0] in %(blocked)r]
 assert not loaded, loaded
@@ -76,6 +85,9 @@ def test_no_file_of_the_port_imports_jax():
     files = sorted((ROOT / "umr_tpu_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 10
+    for f in ("experiments/train_s1.py", "training/steps.py",
+              "models/mesh_net.py", "ops/raster_kernel.py"):
+        assert ROOT / "umr_tpu_torch" / f in files, f
     offenders = [str(f.relative_to(ROOT)) for f in files
                  if pat.search(f.read_text())]
     assert not offenders, offenders

@@ -154,17 +154,22 @@ def test_plain_matches_golden(rng):
 
 
 def test_wrapper_on_cpu_is_the_plain_version(rng):
-    """A CPU tensor takes the plain version and launches nothing; p2f is
-    not computed yet, and asking for it raises."""
+    """A CPU tensor takes the plain version and launches nothing; asked
+    for p2f, it runs the plain version one face per chunk (the kernel's
+    p2f rule)."""
     faces, tex = random_scene(rng, B=1)
-    before = raster_kernel.LAUNCHES
+    before = (raster_kernel.LAUNCHES, raster_kernel.P2F_LAUNCHES)
     out = raster_kernel.soft_rasterize_fwd(t_of(faces), t_of(tex), **KW)
     ref = soft_rasterize(t_of(faces), t_of(tex), **KW)
-    assert raster_kernel.LAUNCHES == before
     np.testing.assert_array_equal(np_of(out.rgba), np_of(ref.rgba))
-    with pytest.raises(NotImplementedError):
-        raster_kernel.soft_rasterize_fwd(t_of(faces), t_of(tex),
-                                         need_p2f=True, **KW)
+    assert not out.p2f.any()
+    out = raster_kernel.soft_rasterize_fwd(t_of(faces), t_of(tex),
+                                           need_p2f=True, **KW)
+    ref = soft_rasterize(t_of(faces), t_of(tex), face_chunk=1,
+                         need_p2f=True, **KW)
+    assert (raster_kernel.LAUNCHES, raster_kernel.P2F_LAUNCHES) == before
+    np.testing.assert_array_equal(np_of(out.p2f), np_of(ref.p2f))
+    np.testing.assert_array_equal(np_of(out.rgba), np_of(ref.rgba))
 
 
 def _mesh(rng, B=2):

@@ -174,16 +174,17 @@ def _get(tree, path):
     return tree
 
 
-def _port_run(s2, impl="auto"):
+def _port_run(s2, impl="auto", **cfg_kw):
     """One port step from the fixture's weights: (scalars, gradients as
     (p0 - p1) / lr under the torch names)."""
-    if impl == "auto":
+    if impl == "auto" and not cfg_kw:
         step_fn, state = s2["step_fn"], s2["state"]
         snapshot = {k: v.clone() for k, v in state.model.state_dict().items()}
         dsnap = {k: v.clone() for k, v in state.disc.state_dict().items()}
     else:
         _, _, _, init_fn, step_fn = _port_step(
-            s2["cfg"], s2["template"], s2["seg"], s2["pvi"], impl)
+            s2["cfg"].replace(**cfg_kw), s2["template"], s2["seg"],
+            s2["pvi"], impl)
         state = init_fn(0)
         state.model.load_state_dict(s2["snapshot"])
         state.disc.load_state_dict(s2["dsnap"])
@@ -191,7 +192,7 @@ def _port_run(s2, impl="auto"):
     state, sc = step_fn(state, prepare_batch(s2["batch"]), s2["draws"])
     p1 = _params(state)
     grads = {k: np_of((p0[k] - p1[k]) / LR) for k in p0}
-    if impl == "auto":
+    if impl == "auto" and not cfg_kw:
         s2["snapshot"], s2["dsnap"] = snapshot, dsnap
     return {k: float(v) for k, v in sc.items()}, grads
 
@@ -266,6 +267,56 @@ def test_kernel_route_on_cpu_matches_exact_ad(s2, port_auto):
         np.testing.assert_allclose(sc_k[k], v, rtol=1e-5, atol=1e-7,
                                    err_msg=k)
     assert _cosine(g_k, g_a) >= 0.9999
+
+
+def test_cycle_soft_p2f_changes_the_cycle_target_only(s2, port_auto):
+    """cycle_soft_p2f: the texture-cycle target is the soft render's p2f
+    at the sampled camera, not the hard render's zeros. Against the JAX
+    step without the flag every other scalar agrees as in
+    test_s2_scalars_match_jax; the cycle loss agrees with JAX's
+    renderer and loss on the port's own forward (rtol 2e-3, reading
+    1.5e-4), and the rest of the total as JAX's (reading 2.6e-4)."""
+    from umr_tpu.losses.losses import tex_cycle_loss as jax_cycle
+    from umr_tpu_torch.models import symmetrize
+    from umr_tpu_torch.ops.grid_sample import sample_textures
+
+    sc, _ = _port_run(s2, cycle_soft_p2f=True)
+    jsc, cfg = s2["jsc"], s2["cfg"]
+    for k, v in jsc.items():
+        if k in ("tex_cycle_loss", "total_loss"):
+            continue
+        rtol = 1e-4 if k in MODEL_SCALARS else 2e-3
+        np.testing.assert_allclose(sc[k], v, rtol=rtol, atol=1e-7,
+                                   err_msg=k)
+    assert abs(sc["tex_cycle_loss"] - jsc["tex_cycle_loss"]) > 1e-3
+    np.testing.assert_allclose(
+        sc["total_loss"] - sc["tex_cycle_loss"] * cfg.tex_cycle_loss_wt,
+        jsc["total_loss"] - jsc["tex_cycle_loss"] * cfg.tex_cycle_loss_wt,
+        rtol=2e-3)
+
+    # JAX's soft p2f and cycle loss on the step's forward
+    model, t = s2["state"].model, s2["template"]
+    model.load_state_dict(s2["snapshot"])
+    db = prepare_batch(s2["batch"])
+    with torch.no_grad():
+        model.train()
+        out = model(t_of(db["input_img"]), eps=s2["draws"]["eps"],
+                    sample_inds=s2["draws"]["sample_inds"])
+        pred_vs = (symmetrize(model.mean_v, t)[None]
+                   + symmetrize(out["delta_v"], t))
+        tex = sample_textures(out["tex_flow"], t_of(db["img"]))
+        tex = tex.reshape(tex.shape[0], tex.shape[1], -1, 3)
+    model.load_state_dict(s2["snapshot"])
+    common = dict(image_size=IMG, anti_aliasing=False, **JAX_KW)
+    args = (jnp.asarray(np_of(pred_vs)), jnp.asarray(t.faces),
+            jnp.asarray(np_of(out["cam"])))
+    p2f = JaxRenderer(ambient_intensity=1.0, directional_intensity=0.0,
+                      **common).render(*args, jnp.asarray(np_of(tex)),
+                                       need_p2f=True).p2f
+    ids = JaxRenderer(render_type="hard", **common).render(*args).aggr[:, 1]
+    want = jax_cycle(jnp.asarray(np_of(out["tex_flow"])), p2f,
+                     ids.reshape(ids.shape[0], -1))[0]
+    np.testing.assert_allclose(sc["tex_cycle_loss"], float(want), rtol=2e-3)
 
 
 @pytest.mark.parametrize("optim_bs", [1, 2])
@@ -401,6 +452,5 @@ def test_entry_points_default_to_the_card():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train_s2.run(cfg, [synthetic_batch(np.random.RandomState(0), 2,
                                            IMG)], semantic=(None, seg, pvi))
-    for bad in (dict(bf16=True), dict(cycle_soft_p2f=True)):
-        with pytest.raises(NotImplementedError):
-            _port_step(cfg.replace(**bad), template, seg, pvi)
+    with pytest.raises(NotImplementedError):
+        _port_step(cfg.replace(bf16=True), template, seg, pvi)

@@ -96,15 +96,18 @@ def jax_meshnet(template, image_size, nz_feat, z_dim, num_hypo_cams,
     return jmodel, flax_variables(model, template, num_hypo_cams)
 
 
-def flax_variables(model, template, num_hypo_cams):
-    """A port MeshNet's weights, BN statistics, buffers and mean_v as the
-    JAX package's MeshNet variables, through its key map and transforms."""
+def flax_variables(model, template, num_hypo_cams, stage=2):
+    """A port MeshNet's (MeshNetS1's, stage=1) weights, BN statistics,
+    buffers and mean_v as the JAX package's model variables, through its
+    key map and transforms."""
     from umr_tpu.models.reference_io import _apply_transform, build_key_map
 
-    sd = {k: v.detach().cpu().numpy() for k, v in model.state_dict().items()}
+    # copies: a view would follow the model's in-place updates
+    sd = {k: v.detach().cpu().numpy().copy()
+          for k, v in model.state_dict().items()}
     n_up = min(5, int(np.log2(template.uv_image_size()[0])))
-    pm, sm, bm, tm = build_key_map(2, num_hypo_cams, n_up)
-    variables = {}
+    pm, sm, bm, tm = build_key_map(stage, num_hypo_cams, n_up)
+    variables = {"buffers": {}}
     for coll, maps in (("params", pm), ("batch_stats", sm),
                        ("buffers", bm), ("template", tm)):
         for path, tkey, tf in maps:

@@ -9,6 +9,10 @@ import dataclasses
 
 from .config import Config
 
+# stage 1's flag defaults (the JAX package's train_s1 overrides)
+S1_DEFAULTS = dict(mask_loss_wt=3.0, flatten_reg_wt=4e-4, deform_reg_wt=5.0,
+                   tex_cycle_loss_wt=0.5, use_scops=False)
+
 
 def _bool(v):
     if v.lower() in ("1", "true", "yes"):

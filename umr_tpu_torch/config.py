@@ -171,12 +171,15 @@ def resolve_device(device=None):
     return device
 
 
-def check_supported(cfg: Config):
-    """The port has the stage-2 model only: textured, multi-hypothesis."""
-    for k in ("use_texture", "pred_cam", "multiple_cam_hypo"):
+def check_supported(cfg: Config, stage=2):
+    """The port has the textured models with a predicted camera: stage 2
+    multi-hypothesis, stage 1 single-camera (multiple_cam_hypo unread)."""
+    required = ("use_texture", "pred_cam") + (
+        ("multiple_cam_hypo",) if stage == 2 else ())
+    for k in required:
         if not getattr(cfg, k):
             raise NotImplementedError(f"--{k}=False is not ported")
-    if cfg.az_ele_quat:
+    if stage == 2 and cfg.az_ele_quat:
         raise NotImplementedError("--az_ele_quat is not ported")
 
 

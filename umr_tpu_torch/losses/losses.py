@@ -1,4 +1,4 @@
-"""Loss functions of the stage-2 objective, channel-last images (port of
+"""Loss functions of the stage-1 and stage-2 objectives, channel-last images (port of
 umr_tpu/losses/losses.py: the reference's nnutils/loss_utils.py, the
 SoftRas losses and the SCOPS centroid ops).
 """
@@ -29,6 +29,11 @@ def texture_dt_loss(texture_flow, dist_transf):
 def deform_l2reg(V):
     """Mean vertex-displacement norm."""
     return torch.linalg.norm(V.reshape(-1, V.shape[-1]), dim=1).mean()
+
+
+def sym_reg(verts):
+    """Mean |y| of the vertices [B,V,3]: stage 1's orientation reg."""
+    return verts[:, :, 1].abs().mean()
 
 
 def entropy_loss(A):

@@ -1,5 +1,6 @@
-"""Stage-2 prediction heads: encoder, shape, texture flow, cameras
-(port of umr_tpu/models/heads.py; reference nnutils/cub_mesh.py).
+"""Prediction heads: encoder, shape (stage 2's linear head, stage 1's
+MLP), texture flow, cameras (port of umr_tpu/models/heads.py; reference
+nnutils/cub_mesh.py and cub_mesh_s1.py).
 
 Parity traps reproduced here:
   * Encoder: the 4x4/s2 `enc_conv1` becomes a 1x1 conv for inputs under
@@ -71,6 +72,25 @@ class ShapePredictor(nn.Module):
         return dv.reshape(dv.shape[0], -1, 3)
 
 
+class ShapePredictorMLP(nn.Module):
+    """Stage 1's shape head: 5 linear layers, widths z, 2z, 4z, 8z, then
+    3 per vertex, with leaky ReLU 0.01 between them (reference key layout
+    shape_predictor.pred_layer.{0,2,4,6,8})."""
+
+    def __init__(self, nz_feat, num_verts):
+        super().__init__()
+        widths = [nz_feat, nz_feat, nz_feat * 2, nz_feat * 4, nz_feat * 8]
+        layers = []
+        for a, b in zip(widths[:-1], widths[1:]):
+            layers += [nn.Linear(a, b), nn.LeakyReLU(0.01)]
+        self.pred_layer = nn.Sequential(*layers,
+                                        nn.Linear(widths[-1], num_verts * 3))
+
+    def forward(self, feat):
+        dv = self.pred_layer(feat)
+        return dv.reshape(dv.shape[0], -1, 3)
+
+
 class TexturePredictorUV(nn.Module):
     """fc stack -> conv decoder -> tanh UV flow image -> per-face texel
     flow. Returns (tex_flow [B,F,T,T,2], uv_image [B,H,W,2])."""
@@ -119,10 +139,12 @@ class ScaleHead(_Pred):
 
 
 class QuatHead(_Pred):
-    """Normalised quaternion head."""
+    """Normalised quaternion head. zero_rotation_init: init_weights sets
+    its bias to (1, 0, 0, 0) (stage 2), else to zero (stage 1)."""
 
-    def __init__(self, nz):
+    def __init__(self, nz, zero_rotation_init=True):
         super().__init__(nz, 4)
+        self.zero_rotation_init = zero_rotation_init
 
     def forward(self, feat):
         q = self.pred_layer(feat)

@@ -1,6 +1,7 @@
-"""MeshNet, stage 2: the single-view reconstruction predictor
+"""MeshNet, the single-view reconstruction predictor: stage 2
 (port of umr_tpu/models/mesh_net.py::MeshNet; reference
-nnutils/cub_mesh.py:366-507).
+nnutils/cub_mesh.py:366-507) and stage 1 (MeshNetS1; reference
+nnutils/cub_mesh_s1.py:225-355).
 
 Module names follow the reference's state_dict (`encoder.resnet_conv...`,
 `cam_predictor.camera_predictor.3...`, `texture_predictor.decoder...`,
@@ -15,31 +16,53 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from .heads import Encoder, MultiCamPredictor, ShapePredictor, TexturePredictorUV
+from .heads import (Encoder, MultiCamPredictor, QuatHead, ScaleHead,
+                    ShapePredictor, ShapePredictorMLP, TexturePredictorUV,
+                    TransHead)
 
 
-class MeshNet(nn.Module):
-    def __init__(self, template, input_size=256, nz_feat=200, z_dim=350,
-                 num_hypo_cams=8):
+class _MeshNetBase(nn.Module):
+    """The encoder, the texture flow and the template both stages share
+    (registered around the stage's own heads, in the reference's order)."""
+
+    def __init__(self, template, input_size, nz_feat, z_dim):
         super().__init__()
         self.template = template
         self.encoder = Encoder(input_size, nz_feat, z_dim)
-        self.shape_predictor = ShapePredictor(z_dim, template.num_output)
-        self.cam_predictor = MultiCamPredictor(nz_feat, num_hypo_cams)
+
+    def _add_texture_and_template(self, nz_feat):
+        template = self.template
         H, W = template.uv_image_size()
         self.texture_predictor = TexturePredictorUV(
             nz_feat, template.uv_sampler, img_H=H, img_W=W,
             n_upconv=min(5, int(np.log2(H))),
             num_sym_faces=template.num_sym_faces)
+        # a copy: the stage-1 template update moves mean_v in place
         self.register_buffer("mean_v",
-                             torch.as_tensor(np.asarray(template.mean_v_init)))
+                             torch.tensor(np.asarray(template.mean_v_init)))
+
+    def encode(self, img, eps=None, generator=None):
+        """img [B,H,W,3] -> (feat, noise, mean, logvar)."""
+        return self.encoder(img.permute(0, 3, 1, 2), eps=eps,
+                            generator=generator)
+
+    def get_mean_shape(self):
+        return symmetrize(self.mean_v, self.template)
+
+
+class MeshNet(_MeshNetBase):
+    def __init__(self, template, input_size=256, nz_feat=200, z_dim=350,
+                 num_hypo_cams=8):
+        super().__init__(template, input_size, nz_feat, z_dim)
+        self.shape_predictor = ShapePredictor(z_dim, template.num_output)
+        self.cam_predictor = MultiCamPredictor(nz_feat, num_hypo_cams)
+        self._add_texture_and_template(nz_feat)
 
     def forward(self, img, eps=None, sample_inds=None, generator=None):
         """img [B,H,W,3] -> dict of predictions. eps (VAE noise) and
         sample_inds (camera hypothesis) are drawn from `generator` unless
         given."""
-        feat, noise, mean, logvar = self.encoder(
-            img.permute(0, 3, 1, 2), eps=eps, generator=generator)
+        feat, noise, mean, logvar = self.encode(img, eps, generator)
         cam, inds, cam_probs, all_cams, quats = self.cam_predictor(
             feat, sample_inds=sample_inds, generator=generator)
         tex_flow, uv_image = self.texture_predictor(feat)
@@ -51,8 +74,31 @@ class MeshNet(nn.Module):
             delta_v=self.shape_predictor(noise),
         )
 
-    def get_mean_shape(self):
-        return symmetrize(self.mean_v, self.template)
+
+class MeshNetS1(_MeshNetBase):
+    """Stage 1: the MLP shape head on the VAE sample, one camera
+    [scale, tx, ty, quat] from the features. outputs['feat'] is the VAE
+    sample, which the online template update averages."""
+
+    def __init__(self, template, input_size=256, nz_feat=200, z_dim=350):
+        super().__init__(template, input_size, nz_feat, z_dim)
+        self.shape_predictor = ShapePredictorMLP(z_dim, template.num_output)
+        self.quat_predictor = QuatHead(nz_feat, zero_rotation_init=False)
+        self.scale_predictor = ScaleHead(nz_feat)
+        self.trans_predictor = TransHead(nz_feat)
+        self._add_texture_and_template(nz_feat)
+
+    def forward(self, img, eps=None, generator=None):
+        """img [B,H,W,3] -> dict of predictions; eps (VAE noise) is drawn
+        from `generator` unless given."""
+        feat, noise, mean, logvar = self.encode(img, eps, generator)
+        cam = torch.cat([self.scale_predictor(feat),
+                         self.trans_predictor(feat),
+                         self.quat_predictor(feat)], dim=1)
+        tex_flow, uv_image = self.texture_predictor(feat)
+        return dict(delta_v=self.shape_predictor(noise), cam=cam,
+                    tex_flow=tex_flow, uvimage_pred=uv_image, feat=noise,
+                    mean=mean, logvar=logvar)
 
 
 def symmetrize(V, template):
@@ -67,8 +113,10 @@ def symmetrize(V, template):
 def init_weights(model, generator):
     """Seeded initialisation mirroring the JAX package's initialisers:
     normal(0.02) for convs and linears of the heads, kaiming fan_out for
-    the ResNet trunk, normal(1e-4) for the shape head, the quaternion
-    heads' bias (1, 0, 0, 0), zero biases, unit BatchNorm scales."""
+    the ResNet trunk, normal(1e-4) for stage 2's shape head and lecun
+    normal (1/sqrt(fan_in), flax's Dense default) for stage 1's MLP, the
+    quaternion heads' bias (1, 0, 0, 0) where zero_rotation_init, zero
+    biases, unit BatchNorm scales."""
     def normal_(t, std):
         t.copy_(torch.randn(t.shape, generator=generator) * std)
 
@@ -77,14 +125,17 @@ def init_weights(model, generator):
             if ".resnet." in f".{name}.":
                 fan_out = mod.weight.shape[0] * math.prod(mod.weight.shape[2:])
                 normal_(mod.weight, math.sqrt(2.0 / fan_out))
+            elif name.startswith("shape_predictor.pred_layer."):
+                normal_(mod.weight, 1.0 / math.sqrt(mod.weight.shape[1]))
             elif name.startswith("shape_predictor"):
                 normal_(mod.weight, 1e-4)
             else:
                 normal_(mod.weight, 0.02)
             if mod.bias is not None:
                 mod.bias.zero_()
-                if name.endswith("quat_predictor.pred_layer"):
-                    mod.bias.copy_(torch.tensor([1.0, 0.0, 0.0, 0.0]))
         elif isinstance(mod, (nn.BatchNorm1d, nn.BatchNorm2d)):
             mod.reset_parameters()
+    for mod in model.modules():
+        if isinstance(mod, QuatHead) and mod.zero_rotation_init:
+            mod.pred_layer.bias.copy_(torch.tensor([1.0, 0.0, 0.0, 0.0]))
     return model

@@ -27,11 +27,12 @@ def _maps(stage=2, num_cams=8, n_upconv=5):
     return pm + sm + bm + tm
 
 
-def state_dict_from_flax(flat, num_cams=8, n_upconv=5):
+def state_dict_from_flax(flat, num_cams=8, n_upconv=5, stage=2):
     """{'encoder/resnet/conv1/kernel': array, ..., 'mean_v': array} ->
-    {torch_key: tensor} for every mapped key present in `flat`."""
+    {torch_key: tensor} for every mapped key of the stage's model
+    (MeshNet for 2, MeshNetS1 for 1) present in `flat`."""
     sd = {}
-    for path, tkey, tf in _maps(2, num_cams, n_upconv):
+    for path, tkey, tf in _maps(stage, num_cams, n_upconv):
         key = "/".join(path)
         if key in flat:
             arr = to_torch_layout(np.asarray(flat[key], np.float32), tf)
@@ -78,18 +79,21 @@ def load_into(model, sd, allow_missing=()):
 
 
 def load_checkpoint(model, path):
-    """Load a .pth into `model`: either flax-path keys (the JAX package's
-    trainer output, mapped by state_dict_from_flax) or torch keys (the
-    port's own or a reference pred_net_*.pth)."""
+    """Load a .pth into `model` (MeshNet or MeshNetS1): either flax-path
+    keys (the JAX package's trainer output, mapped by
+    state_dict_from_flax) or torch keys (the port's own or a reference
+    pred_net_*.pth)."""
     raw = torch.load(path, map_location="cpu", weights_only=True)
     if any("/" in k for k in raw):
         flat = {k: v.numpy() for k, v in raw.items()
                 if not k.startswith("_meta/")}
-        num_cams = len(model.cam_predictor.camera_predictor)
+        stage = 2 if hasattr(model, "cam_predictor") else 1
+        num_cams = (len(model.cam_predictor.camera_predictor) if stage == 2
+                    else 0)
         n_up = sum(1 for k in flat
                    if k.startswith("texture_predictor/decoder/UpConvBlock_")
                    and k.endswith("/kernel"))
-        sd = state_dict_from_flax(flat, num_cams, n_up)
+        sd = state_dict_from_flax(flat, num_cams, n_up, stage)
         # a flax export carries params, BN stats and mean_v, not buffers
         return load_into(model, sd, allow_missing=("cam_biases",))
     sd = {k: v for k, v in raw.items()

@@ -1,6 +1,6 @@
 """Wrappers of the hand-written CUDA rasterizer kernels, forward
-(csrc/raster_fwd.cu, replacing umr_tpu/ops/raster_kernel.py::_fwd_kernel)
-and backward (csrc/raster_bwd.cu, replacing umr_tpu/ops/
+(csrc/raster_fwd.cu, replacing umr_tpu/ops/raster_kernel.py::_fwd_kernel
+with its p2f side output) and backward (csrc/raster_bwd.cu, replacing umr_tpu/ops/
 raster_kernel_bwd.py::_bwd_kernel), joined by a torch.autograd.Function
 (the counterpart of umr_tpu/ops/raster_kernel.py::_pallas_raster_vjp).
 
@@ -10,6 +10,9 @@ the backward kernel over the same bins; neither falls back. On a CPU
 tensor the Function runs the kernels' plain versions,
 ops/rasterize.py::soft_rasterize and ops/rasterize_bwd.py::
 soft_rasterize_bwd, so the CPU tests drive the card's gradient route.
+Where p2f is asked for, the plain forward runs one face per chunk, so
+that its p2f follows the kernel's rule (each pair weighted by the pixel's
+running max after that face; see ops/rasterize.py).
 
 The kernels are built at first use with nvcc into umr_tpu_torch/build/,
 one compiler per source, all started together, linked into one shared
@@ -30,9 +33,9 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from .raster_bins import compute_raster_bins, entry_dims
-from .rasterize import (EPS, FAR, NEAR, RasterOut, soft_rasterize,
-                        threshold_of)
+from .raster_bins import compute_raster_bins
+from .rasterize import (EPS, FAR, NEAR, RasterOut, normalize_p2f,
+                        soft_rasterize, threshold_of)
 from .rasterize_bwd import soft_rasterize_bwd
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -49,10 +52,12 @@ NVCC_FLAGS = ARCH + ("-O3", "-std=c++17", "--fmad=false", "-Xcompiler",
 TILE_SIZE = 32
 MAX_COVER = 4
 
-# kernel launches made by the forward and the backward wrapper; callers
+# kernel launches made by the forward and the backward wrapper, and the
+# forward's launches that wrote p2f (also counted in LAUNCHES); callers
 # reset and read them
 LAUNCHES = 0
 BWD_LAUNCHES = 0
+P2F_LAUNCHES = 0
 
 _lib = None
 BUILD_LOG = ""   # nvcc's output (ptxas registers / spills) of the last build
@@ -108,7 +113,7 @@ def build():
     lib = ctypes.CDLL(str(so))
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.umr_raster_fwd.argtypes = (
-        [vp] * 6 + [ci] * 6 + [cf] * 14 + [ci] * 2 + [vp])
+        [vp] * 7 + [ci] * 6 + [cf] * 14 + [ci] * 3 + [vp])
     lib.umr_raster_fwd.restype = ci
     lib.umr_raster_bwd.argtypes = (
         [vp] * 9 + [ci] * 6 + [cf] * 10 + [ci] * 3 + [vp])
@@ -137,8 +142,11 @@ def _raise_on(lib, err, what):
                            + lib.umr_cuda_error_string(err).decode())
 
 
-def _check_bins(bins, B, F, S, mf_cap, dev):
-    E_al, _ = entry_dims(F, (S // TILE_SIZE) ** 2, MAX_COVER, mf_cap)
+def _check_bins(bins, B, S, dev):
+    """Bins of compute_raster_bins at image size S (any max_cover,
+    mf_cap and entry_cap: the kernels read the entry count from
+    al_fids); returns the entries per image."""
+    E_al = bins[0].shape[-1]
     _check(bins[0], "al_fids", (B, E_al), torch.int32, dev)
     _check(bins[1], "astarts", (B, (S // TILE_SIZE) ** 2 + 1), torch.int32,
            dev)
@@ -146,32 +154,42 @@ def _check_bins(bins, B, F, S, mf_cap, dev):
 
 
 def _launch_fwd(fv, tex, bins, S, bg, sigma_val, dist_eps, gamma_val,
-                mf_cap, hard, mask_only):
-    """Forward kernel on CUDA tensors -> (rgba [B,S,S,4], aggr [B,2,S,S])."""
-    global LAUNCHES
+                mf_cap, hard, mask_only, need_p2f=False):
+    """Forward kernel on CUDA tensors -> (rgba [B,S,S,4], aggr [B,2,S,S],
+    p2f [B,F,2]). p2f is written by the softmax instance under need_p2f
+    and is zeros otherwise (the hard body writes none)."""
+    global LAUNCHES, P2F_LAUNCHES
     B, F = fv.shape[:2]
     T2 = tex.shape[2]
     dev = fv.device
     _check(fv, "face_vertices", (B, F, 3, 3), torch.float32, dev)
     _check(tex, "textures", (B, F, T2, 3), torch.float32, dev)
-    E_al = _check_bins(bins, B, F, S, mf_cap, dev)
+    E_al = _check_bins(bins, B, S, dev)
     threshold, margin = threshold_of(sigma_val, dist_eps)
     rgba = torch.empty((B, S, S, 4), dtype=torch.float32, device=dev)
     aggr = torch.empty((B, 2, S, S), dtype=torch.float32, device=dev)
+    need_p2f = bool(need_p2f) and not hard
+    # the kernel adds per-face sums of contrib * (gx, gy, 1) into this
+    sums = torch.zeros((B, F, 3) if need_p2f else (0,), dtype=torch.float32,
+                       device=dev)
     lib = build()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.umr_raster_fwd(
             fv.data_ptr(), tex.data_ptr(), bins[0].data_ptr(),
             bins[1].data_ptr(), rgba.data_ptr(), aggr.data_ptr(),
+            sums.data_ptr() if need_p2f else None,
             B, F, S, T2, E_al, int(mf_cap),
             NEAR, FAR, 1.0 / (FAR - NEAR), EPS, 1.0 / sigma_val,
             1.0 / gamma_val, threshold, margin,
             float(np.exp(EPS / gamma_val)), 1e-5, 1.0 - 1e-5, *bg,
-            int(hard), int(bool(mask_only)), stream)
+            int(hard), int(bool(mask_only)), int(need_p2f), stream)
     _raise_on(lib, err, "raster_fwd")
     LAUNCHES += 1
-    return rgba, aggr
+    if not need_p2f:
+        return rgba, aggr, fv.new_zeros((B, F, 2))
+    P2F_LAUNCHES += 1
+    return rgba, aggr, normalize_p2f(sums)
 
 
 def raster_bwd(fv, tex, bins, rgba, aggr, g_rgba, S, sigma_val, dist_eps,
@@ -191,7 +209,7 @@ def raster_bwd(fv, tex, bins, rgba, aggr, g_rgba, S, sigma_val, dist_eps,
     dev = fv.device
     _check(fv, "face_vertices", (B, F, 3, 3), torch.float32, dev)
     _check(tex, "textures", (B, F, T2, 3), torch.float32, dev)
-    E_al = _check_bins(bins, B, F, S, mf_cap, dev)
+    E_al = _check_bins(bins, B, S, dev)
     g_rgba = g_rgba.contiguous()
     for t, name, shape in ((rgba, "rgba", (B, S, S, 4)),
                            (aggr, "aggr", (B, 2, S, S)),
@@ -220,31 +238,34 @@ def raster_bwd(fv, tex, bins, rgba, aggr, g_rgba, S, sigma_val, dist_eps,
 
 class _Raster(torch.autograd.Function):
     """Forward kernel + backward kernel (plain versions on the CPU).
-    Gradients go to the faces and texels; the bins get none. The backward
-    reuses the forward's bins, rgba (at render size) and aggr."""
+    Gradients go to the faces and texels; the bins get none, and aggr and
+    p2f are outputs without gradients. The backward reuses the forward's
+    bins, rgba (at render size) and aggr."""
 
     @staticmethod
     def forward(ctx, fv, tex, al_fids, astarts, kw):
         if fv.is_cuda:
-            rgba, aggr = _launch_fwd(
+            rgba, aggr, p2f = _launch_fwd(
                 fv, tex, (al_fids, astarts), kw["S"], kw["bg"],
                 kw["sigma_val"], kw["dist_eps"], kw["gamma_val"],
-                kw["mf_cap"], kw["hard"], kw["mask_only"])
+                kw["mf_cap"], kw["hard"], kw["mask_only"], kw["need_p2f"])
         else:
+            # one face per chunk where p2f is read: the kernel's rule
             out = soft_rasterize(
                 fv, tex, image_size=kw["S"], background_color=kw["bg"],
                 sigma_val=kw["sigma_val"], dist_eps=kw["dist_eps"],
                 gamma_val=kw["gamma_val"],
                 aggr_func_rgb="hard" if kw["hard"] else "softmax",
-                mask_only=kw["mask_only"])
-            rgba, aggr = out.rgba, out.aggr
+                mask_only=kw["mask_only"], need_p2f=kw["need_p2f"],
+                **({"face_chunk": 1} if kw["need_p2f"] else {}))
+            rgba, aggr, p2f = out.rgba, out.aggr, out.p2f
         ctx.kw = kw
         ctx.save_for_backward(fv, tex, al_fids, astarts, rgba, aggr)
-        ctx.mark_non_differentiable(aggr)
-        return rgba, aggr
+        ctx.mark_non_differentiable(aggr, p2f)
+        return rgba, aggr, p2f
 
     @staticmethod
-    def backward(ctx, g_rgba, _g_aggr):
+    def backward(ctx, g_rgba, _g_aggr, _g_p2f):
         fv, tex, al_fids, astarts, rgba, aggr = ctx.saved_tensors
         kw = ctx.kw
         if kw["hard"]:
@@ -286,12 +307,12 @@ def soft_rasterize_fwd(
     textures the caller does not differentiate), hard mode has no
     backward. bins: (al_fids, astarts) of compute_raster_bins at this
     image_size and mf_cap, shared by renders of the same projected faces;
-    computed here when None. Returns RasterOut; p2f is zeros
-    (need_p2f=True raises: the kernel does not write p2f yet).
+    computed here when None (with MAX_COVER and the default entry cap;
+    bins with larger caps drop fewer faces). Returns RasterOut; p2f is the per-face
+    expected image coordinate under need_p2f (softmax; it carries no
+    gradient, and a face's entries past mf_cap in a tile are dropped, as
+    on the TPU), else zeros.
     """
-    if need_p2f:
-        raise NotImplementedError(
-            "need_p2f=True: the forward rasterizer does not write p2f yet")
     if aggr_func_rgb not in ("softmax", "hard"):
         raise ValueError(f"aggr_func_rgb={aggr_func_rgb!r}")
     B, F = face_vertices.shape[:2]
@@ -311,7 +332,8 @@ def soft_rasterize_fwd(
               + (0.0,) * (3 - len(background_color)),
               sigma_val=sigma_val, dist_eps=dist_eps, gamma_val=gamma_val,
               mf_cap=int(mf_cap), hard=hard, mask_only=mask_only and not hard,
-              rgb_geom_detach=rgb_geom_detach, tex_grads=tex_grads)
-    rgba, aggr = _Raster.apply(face_vertices, textures, al_fids, astarts, kw)
-    return RasterOut(rgba=rgba, p2f=face_vertices.new_zeros((B, F, 2)),
-                     aggr=aggr)
+              rgb_geom_detach=rgb_geom_detach, tex_grads=tex_grads,
+              need_p2f=bool(need_p2f) and not hard)
+    rgba, aggr, p2f = _Raster.apply(face_vertices, textures, al_fids, astarts,
+                                    kw)
+    return RasterOut(rgba=rgba, p2f=p2f, aggr=aggr)

@@ -15,6 +15,18 @@ and the two differ only in the order of the softmax and alpha sums.
 
 Pixel convention: pixel (row i, col j) sits at xp = (2j+1-S)/S,
 yp = (2(S-1-i)+1-S)/S; callers pass face vertices with y already negated.
+
+p2f, the per-face expected image coordinate (need_p2f, softmax only):
+sum over pixels of contrib * (gx, gy) / sum of contrib, on the grid
+gx = 2j/(S-1) - 1, gy = 2i/(S-1) - 1, as umr_tpu/ops/rasterize.py
+computes it: a pair's contrib is its softmax weight against the pixel's
+running max after the pair's face chunk. So the rule depends on the
+chunking: at face_chunk=1 the max is the running max after this face,
+the reference CUDA kernel's rule, which the CUDA kernel follows and
+tests/golden_raster.py encodes; at face_chunk=F it is the pixel's final
+max, the JAX package's dense rule. With gamma 1e-4 the two differ
+wherever a face is visited before a nearer one; they agree where depth
+is constant over the faces.
 """
 
 from __future__ import annotations
@@ -34,10 +46,15 @@ _DUMMY_FACE = ((10.0, 10.0, 5.0), (10.1, 10.0, 5.0), (10.0, 10.1, 5.0))
 
 class RasterOut(NamedTuple):
     rgba: torch.Tensor   # [B, H, W, 4]
-    p2f: torch.Tensor    # [B, F, 2] expected image coordinate per face;
-                         # zeros: no renderer of the port consumes it yet
+    p2f: torch.Tensor    # [B, F, 2] expected image coordinate per face
+                         # (need_p2f, softmax), else zeros
     aggr: torch.Tensor   # [B, 2, H, W]: (softmax_sum, softmax_max) or
                          #               (depth_min, face_index_min) in hard
+
+
+def normalize_p2f(sums):
+    """Per-face sums of contrib * (gx, gy, 1) [..., 3] -> p2f [..., 2]."""
+    return sums[..., :2] / sums[..., 2:].clamp_min(1e-12)
 
 
 def threshold_of(sigma_val, dist_eps):
@@ -200,6 +217,14 @@ def pixel_coords(S, r0, rows, dtype, device):
             yp[r0:r0 + rows].repeat_interleave(S)[None, None, :])
 
 
+def grid_coords(S, r0, rows, dtype, device):
+    """p2f grid coordinates (gx, gy), [rows * S] each, of pixel rows
+    r0 .. r0 + rows - 1, as the CUDA kernel computes them."""
+    ar = torch.arange(S, dtype=dtype, device=device)
+    g = 2.0 * ar / (S - 1) - 1.0
+    return g.repeat(rows), g[r0:r0 + rows].repeat_interleave(S)
+
+
 def pair_math(ch, xp, yp, threshold, margin, inv_sigma, foot=False):
     """Everything a (pixel, face) pair computes that does not depend on
     the other faces, for one face chunk `ch` (face_chunks) and pixels
@@ -254,15 +279,18 @@ def soft_rasterize(
     mask_only=False,
     face_chunk=160,
     pixel_rows_per_block=32,
+    need_p2f=False,
 ):
-    """Rasterize projected triangles into RGBA and aggr, densely, with
-    faces shaded from both sides (the renderer's double_side=True).
+    """Rasterize projected triangles into RGBA, p2f and aggr, densely,
+    with faces shaded from both sides (the renderer's double_side=True).
 
     face_vertices: [B, F, 3, 3] (x, y, z) per corner; textures:
     [B, F, T2, 3] surface texel sheets or None (constant white).
     mask_only (softmax only) skips the colours: rgb is the background.
     face_chunk and pixel_rows_per_block bound the [B, chunk, rows * S]
-    temporaries (memory), not the result.
+    temporaries (memory); the result depends on them only through the
+    order of the sums, and p2f through face_chunk (see the module doc).
+    need_p2f computes p2f (softmax; zeros otherwise).
     """
     if aggr_func_rgb not in ("softmax", "hard"):
         raise ValueError(f"aggr_func_rgb={aggr_func_rgb!r}")
@@ -286,9 +314,16 @@ def soft_rasterize(
     inv_gamma = 1.0 / gamma_val
     inv_depth_range = 1.0 / (FAR - NEAR)
 
+    need_p2f = need_p2f and not hard
+    # per-face sums of contrib * (gx, gy, 1), padded faces included; p2f
+    # is read detached, so it is summed outside autograd
+    p2f_sums = (face_vertices.new_zeros((B, F + face_chunk, 3)) if need_p2f
+                else None)
     rgba_rows, aggr_rows = [], []
     for r0 in range(0, S, rows_blk):
         xp, yp = pixel_coords(S, r0, rows_blk, dtype, device)
+        if need_p2f:
+            gx, gy = grid_coords(S, r0, rows_blk, dtype, device)
         alpha_acc = face_vertices.new_ones((B, P))
         if hard:
             depth = face_vertices.new_full((B, P), 1e7)
@@ -334,6 +369,10 @@ def soft_rasterize(
                     color_acc = color_acc * scale[..., None] + torch.einsum(
                         "bfp,bfpc->bpc", contrib, color)
                 m = m_new
+                if need_p2f:
+                    c = contrib.detach()
+                    p2f_sums[:, ch["base"]:ch["base"] + c.shape[1]] += (
+                        torch.stack([c @ gx, c @ gy, c.sum(2)], -1))
 
         alpha = 1.0 - alpha_acc
         if hard:
@@ -346,6 +385,7 @@ def soft_rasterize(
                          .reshape(B, rows_blk, S, 4))
         aggr_rows.append(aggr.reshape(B, 2, rows_blk, S))
 
-    return RasterOut(rgba=torch.cat(rgba_rows, 1),
-                     p2f=face_vertices.new_zeros((B, F, 2)),
+    p2f = (normalize_p2f(p2f_sums[:, :F]) if need_p2f
+           else face_vertices.new_zeros((B, F, 2)))
+    return RasterOut(rgba=torch.cat(rgba_rows, 1), p2f=p2f,
                      aggr=torch.cat(aggr_rows, 2))

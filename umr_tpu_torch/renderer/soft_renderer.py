@@ -66,6 +66,7 @@ class SoftRenderer:
     eye: tuple = (0.0, 0.0, -2.732)
     offset_z: float = 5.0
     impl: str = "auto"                    # auto | kernel (see module doc)
+    face_chunk: int = 160                 # the plain route's face chunk
 
     def ambient_light_only(self):
         return dataclasses.replace(self, ambient_intensity=1.0,
@@ -115,15 +116,18 @@ class SoftRenderer:
             self.resolved_mf_cap(fv.shape[1]), MAX_COVER)
 
     def render(self, vertices, faces, cams, textures=None, mask_only=False,
-               rgb_geom_detach=False, tex_grads=True, bins=None):
+               rgb_geom_detach=False, tex_grads=True, bins=None,
+               need_p2f=False):
         """vertices [B,V,3]; faces [F,3]; cams [B,7]; textures [B,F,T2,3]
         or None. Returns RasterOut with rgba [B,H,W,4] at image_size; its
-        p2f is zeros (no route writes p2f yet).
+        p2f [B,F,2] (need_p2f, softmax; zeros otherwise) is taken at
+        render_size, before the anti-aliasing pool, and carries no
+        gradient on the kernels' route.
 
         mask_only, rgb_geom_detach, tex_grads and bins act on the kernels'
         route (ops/raster_kernel.py::soft_rasterize_fwd); the plain route
-        renders every face and differentiates exactly, and reads
-        mask_only only."""
+        renders every face in chunks of face_chunk and differentiates
+        exactly, and reads mask_only and need_p2f only."""
         fv = self.project_faces(vertices, faces, cams).contiguous()
         identity_light = (self.ambient_intensity == 1.0
                           and self.directional_intensity == 0.0
@@ -139,14 +143,15 @@ class SoftRenderer:
                   background_color=tuple(self.background_color),
                   sigma_val=self.sigma_val, dist_eps=self.dist_eps,
                   gamma_val=self.gamma_val, aggr_func_rgb=self.render_type,
-                  mask_only=mask_only)
+                  mask_only=mask_only, need_p2f=need_p2f)
         if self.uses_kernel(fv.device):
             out = soft_rasterize_fwd(
                 fv, textures, mf_cap=self.resolved_mf_cap(fv.shape[1]),
                 rgb_geom_detach=rgb_geom_detach, tex_grads=tex_grads,
                 bins=bins, **kw)
         else:
-            out = soft_rasterize(fv, textures, **kw)
+            out = soft_rasterize(fv, textures, face_chunk=self.face_chunk,
+                                 **kw)
         if self.anti_aliasing:
             B, C = out.rgba.shape[0], out.rgba.shape[-1]
             S = self.image_size

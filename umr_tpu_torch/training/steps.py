@@ -1,7 +1,7 @@
-"""The stage-2 training step (port of umr_tpu/training/steps.py::
-build_s2_step): MeshNet-s2 forward, every loss of the stage-2 objective,
-the three rasterizer passes, and one optimizer update over model and
-discriminator.
+"""The training steps of both stages (port of umr_tpu/training/steps.py::
+build_s2_step and build_s1_step): the model's forward, every loss of the
+stage's objective, its rasterizer passes, and one optimizer update over
+model and discriminator; for stage 1 also the online template update.
 
 Optimizer (the reference's, ref train_utils.py:172-194): one Adam
 (beta1 = cfg.beta1, beta2 = 0.999), or SGD with momentum beta1 under
@@ -13,7 +13,7 @@ last batch's). mean_v is a buffer: no optimizer touches it. BatchNorm
 uses batch statistics in train mode (running stats at momentum 0.1, the
 flax 0.9).
 
-The rasterizer passes of one step, on the kernels' route (ops/
+The rasterizer passes of one stage-2 step, on the kernels' route (ops/
 raster_kernel.py; the card, or the CPU with impl="kernel"):
   1. the fused silhouette + texture render of the B*K hypothesis fold,
      rgb gradients to the texels only: forward and backward kernel;
@@ -23,17 +23,31 @@ raster_kernel.py; the card, or the CPU with impl="kernel"):
      (n_groups + 1) * B render with constant textures (tex_grads=False),
      on main_bins repeated and the unseen view's own bins: forward and
      backward kernel.
+With cycle_soft_p2f a fourth, forward-only pass ("s2.pass2_p2f")
+renders the textures at the sampled camera for their p2f (on main_bins),
+the texture-cycle target in place of the hard render's all-zero p2f.
+
+The passes of one stage-1 step on the kernels' route:
+  1. the fused seen-mask + texture render at the predicted camera, with
+     p2f, rgb gradients to the texels only: forward (p2f) and backward;
+  2. the hard visibility render (face ids), forward only; 1 and 2 share
+     one binning of the geometry;
+  3. the GAN's unseen view, mask only: forward and backward kernel.
 On the plain route (CPU, impl="auto") the renders are the plain forward
-under exact autograd, unmerged, as the JAX package's XLA paths.
+under exact autograd, unmerged, as the JAX package's XLA paths; stage 1
+then renders its seen mask and a detached texture render with p2f
+apart, as the JAX package's fallback does.
 
 Random draws (the VAE noise, the camera hypothesis, the GAN view angles)
 come from the state's torch.Generator unless injected (`draws`).
 
 The step's layers are torch.profiler ranges ("s2.forward" around the
 loss, inside it "s2.model", "s2.pass1_fold", "s2.lpips", "s2.pass2_hard"
-and "s2.pass3_merged"; then "s2.backward" and "s2.optimizer"), so a
-trace of the step splits its device time by layer (chip_smoke.py,
-experiments/profile_slice.py::range_split).
+and "s2.pass3_merged"; then "s2.backward" and "s2.optimizer"; stage 1's
+"s1.forward" around "s1.model", "s1.pass1_fused", "s1.lpips",
+"s1.pass2_hard" and "s1.pass3_gan", then "s1.backward" and
+"s1.optimizer"), so a trace of the step splits its device time by layer
+(chip_smoke.py, experiments/profile_slice.py::range_split).
 """
 
 from __future__ import annotations
@@ -51,9 +65,10 @@ from ..config import Config, check_supported, resolve_device
 from ..losses.composite import (PartMatchingLoss, corr_loss_chamfer,
                                 gan_loss, multi_mask_texture_render)
 from ..losses.losses import (cam_diversity_loss, deform_l2reg, flatten_loss,
-                             laplacian_loss, neg_iou_loss, tex_cycle_loss,
-                             texture_dt_loss)
-from ..models import Discriminator, LPIPSAlex, MeshNet, init_weights, symmetrize
+                             laplacian_loss, neg_iou_loss, sym_reg,
+                             tex_cycle_loss, texture_dt_loss)
+from ..models import (Discriminator, LPIPSAlex, MeshNet, MeshNetS1,
+                      init_weights, symmetrize)
 from ..models.weights import WEIGHTS_DIR, load_lpips_npz, load_resnet18_npz
 from ..ops.grid_sample import sample_textures
 from ..ops.quaternion import rotate_cam
@@ -69,7 +84,7 @@ _BIN_FIELDS = ("image_size", "anti_aliasing", "sigma_val", "dist_eps", "eye",
 class TrainState:
     step: int                        # batches taken
     updates: int                     # optimizer updates made
-    model: MeshNet
+    model: torch.nn.Module           # MeshNet or MeshNetS1
     disc: Discriminator
     lpips: LPIPSAlex                 # frozen
     optimizer: torch.optim.Optimizer
@@ -92,7 +107,8 @@ def make_optimizer(cfg: Config, params):
 
 def _renderers(cfg: Config, impl):
     common = dict(image_size=cfg.image_size,
-                  anti_aliasing=cfg.anti_aliasing, impl=impl)
+                  anti_aliasing=cfg.anti_aliasing, impl=impl,
+                  face_chunk=cfg.face_chunk)
     renderer = SoftRenderer(render_type=cfg.renderer_type, **common)
     return (renderer, renderer.ambient_light_only(),
             SoftRenderer(render_type="hard", **common))
@@ -134,49 +150,9 @@ def _init_disc(disc, generator):
             mod.bias.zero_()
 
 
-def build_s2_step(cfg: Config, template, part_loss: PartMatchingLoss,
-                  part_vert_idx, device=None, impl="auto"):
-    """Returns (model, disc, lpips, init_fn, step_fn) on `device` (the
-    card unless "cpu" is asked for).
-
-    part_vert_idx: 4 template-vertex index arrays (head, belly, neck,
-    back) of the semantic template. impl: the renderers' route ("kernel"
-    drives the card's route on the CPU; see renderer/soft_renderer.py).
-
-    init_fn(seed=cfg.seed, weights_dir) -> TrainState: seeded weights,
-    the ResNet-18 trunk and LPIPS from weights_dir where present.
-    step_fn(state, batch, draws=None) -> (state, scalars): batch is the
-    trainer's prepare_batch dict (numpy or tensors); draws optionally
-    injects 'eps' [B,z_dim], 'sample_inds' [B,1] and 'angles' [B]."""
-    if cfg.bf16:
-        raise NotImplementedError("--bf16 is not ported")
-    if cfg.cycle_soft_p2f:
-        raise NotImplementedError(
-            "--cycle_soft_p2f reads the soft renderer's p2f, which no "
-            "route of the port writes yet")
-    if not (cfg.use_texture and cfg.use_gan):
-        raise NotImplementedError("the port's s2 step trains with texture "
-                                  "and GAN (use_texture, use_gan)")
-    check_supported(cfg)
-    device = resolve_device(device)
-    model = MeshNet(template, input_size=cfg.image_size, nz_feat=cfg.nz_feat,
-                    z_dim=cfg.z_dim, num_hypo_cams=cfg.num_hypo_cams)
-    disc = Discriminator(lambda_=cfg.grl_wt, in_dim=3,
-                         img_size=cfg.image_size)
-    lpips = LPIPSAlex()
-    model, disc, lpips = (m.to(device) for m in (model, disc, lpips))
-    renderer, tex_renderer, hard_renderer = _renderers(cfg, impl)
-    dis_renderer = tex_renderer     # ambient only (ref train_s2.py:105-106)
-    faces = torch.as_tensor(template.faces, device=device)
-    lap = torch.as_tensor(template.laplacian, device=device)
-    flat_idx = torch.as_tensor(template.flatten_idx, device=device)
-    pr = part_loss.renderer
-    part_bins_ok = _same_bins(pr, hard_renderer)
-    # the merged part + GAN render draws the part groups with dis_renderer
-    # on hard_renderer's bins: the part renderer must render as
-    # dis_renderer does, and all three must bin alike
-    part_render_eq = (part_bins_ok and pr == dis_renderer
-                      and _same_bins(hard_renderer, dis_renderer))
+def _make_init_fn(cfg: Config, model, disc, lpips, device):
+    """init_fn(seed=cfg.seed, weights_dir) -> TrainState: seeded weights,
+    the ResNet-18 trunk and LPIPS from weights_dir where present."""
 
     def init_fn(seed=None, weights_dir=WEIGHTS_DIR):
         seed = cfg.seed if seed is None else seed
@@ -202,6 +178,83 @@ def build_s2_step(cfg: Config, template, part_loss: PartMatchingLoss,
         gen = torch.Generator(device).manual_seed(seed)
         return TrainState(step=0, updates=0, model=model, disc=disc,
                           lpips=lpips, optimizer=opt, generator=gen)
+
+    return init_fn
+
+
+def _train_step(cfg: Config, state: TrainState, batch, device, prefix,
+                loss_fn):
+    """One training step: the batch to `device`, train mode, loss_fn(batch)
+    -> (total, scalars) in the range f"{prefix}.forward", its backward
+    and, every optim_bs batches, the update with the mean of their
+    gradients at the step's learning rate. Returns (state, scalars)."""
+    batch = {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
+    state.model.train()
+    state.disc.train()
+    opt = state.optimizer
+    k = max(cfg.optim_bs, 1)
+    if state.step % k == 0:
+        opt.zero_grad(set_to_none=True)
+    with record_function(f"{prefix}.forward"):
+        total, sc = loss_fn(batch)
+    with record_function(f"{prefix}.backward"):
+        total.backward()
+    state.step += 1
+    if state.step % k == 0:
+        with record_function(f"{prefix}.optimizer"):
+            if k > 1:
+                for group in opt.param_groups:
+                    for p in group["params"]:
+                        if p.grad is not None:
+                            p.grad.div_(k)
+            for group in opt.param_groups:
+                group["lr"] = learning_rate(cfg, state.updates)
+            opt.step()
+        state.updates += 1
+    return state, {name: v.detach() for name, v in sc.items()}
+
+
+def build_s2_step(cfg: Config, template, part_loss: PartMatchingLoss,
+                  part_vert_idx, device=None, impl="auto"):
+    """Returns (model, disc, lpips, init_fn, step_fn) on `device` (the
+    card unless "cpu" is asked for).
+
+    part_vert_idx: 4 template-vertex index arrays (head, belly, neck,
+    back) of the semantic template. impl: the renderers' route ("kernel"
+    drives the card's route on the CPU; see renderer/soft_renderer.py).
+
+    init_fn(seed=cfg.seed, weights_dir) -> TrainState: seeded weights,
+    the ResNet-18 trunk and LPIPS from weights_dir where present.
+    step_fn(state, batch, draws=None) -> (state, scalars): batch is the
+    trainer's prepare_batch dict (numpy or tensors); draws optionally
+    injects 'eps' [B,z_dim], 'sample_inds' [B,1] and 'angles' [B]."""
+    if cfg.bf16:
+        raise NotImplementedError("--bf16 is not ported")
+    if not (cfg.use_texture and cfg.use_gan):
+        raise NotImplementedError("the port's s2 step trains with texture "
+                                  "and GAN (use_texture, use_gan)")
+    check_supported(cfg)
+    device = resolve_device(device)
+    model = MeshNet(template, input_size=cfg.image_size, nz_feat=cfg.nz_feat,
+                    z_dim=cfg.z_dim, num_hypo_cams=cfg.num_hypo_cams)
+    disc = Discriminator(lambda_=cfg.grl_wt, in_dim=3,
+                         img_size=cfg.image_size)
+    lpips = LPIPSAlex()
+    model, disc, lpips = (m.to(device) for m in (model, disc, lpips))
+    renderer, tex_renderer, hard_renderer = _renderers(cfg, impl)
+    dis_renderer = tex_renderer     # ambient only (ref train_s2.py:105-106)
+    faces = torch.as_tensor(template.faces, device=device)
+    lap = torch.as_tensor(template.laplacian, device=device)
+    flat_idx = torch.as_tensor(template.flatten_idx, device=device)
+    pr = part_loss.renderer
+    part_bins_ok = _same_bins(pr, hard_renderer)
+    # the merged part + GAN render draws the part groups with dis_renderer
+    # on hard_renderer's bins: the part renderer must render as
+    # dis_renderer does, and all three must bin alike
+    part_render_eq = (part_bins_ok and pr == dis_renderer
+                      and _same_bins(hard_renderer, dis_renderer))
+    tex_bins_ok = _same_bins(tex_renderer, hard_renderer)
+    init_fn = _make_init_fn(cfg, model, disc, lpips, device)
 
     def loss_fn(state: TrainState, batch, draws):
         with record_function("s2.model"):
@@ -265,8 +318,17 @@ def build_s2_step(cfg: Config, template, part_loss: PartMatchingLoss,
             hard_out = hard_renderer.render(pred_vs.detach(), faces,
                                             proj_cam, bins=main_bins)
         face_ids = hard_out.aggr[:, 1].reshape(B, -1)
+        cycle_p2f = hard_out.p2f
+        if cfg.cycle_soft_p2f:
+            # the opt-in fix of that quirk: the soft render's real p2f at
+            # the sampled camera, stage 1's target; forward only
+            with record_function("s2.pass2_p2f"):
+                cycle_p2f = tex_renderer.render(
+                    pred_vs.detach(), faces, proj_cam, tex.detach(),
+                    need_p2f=True, tex_grads=False,
+                    bins=main_bins if tex_bins_ok else None).p2f
         sc["tex_cycle_loss"] = tex_cycle_loss(
-            tex_flow, hard_out.p2f.detach(), face_ids.detach())[0]
+            tex_flow, cycle_p2f.detach(), face_ids.detach())[0]
         sc["uv_flow_area"] = uv_flow_area(outputs["uvimage_pred"])
         total = (total + sc["tex_loss"] * cfg.tex_loss_wt
                  + sc["tex_dt_loss"] * cfg.tex_dt_loss_wt
@@ -324,31 +386,146 @@ def build_s2_step(cfg: Config, template, part_loss: PartMatchingLoss,
         return total, sc
 
     def step_fn(state: TrainState, batch, draws: Optional[dict] = None):
-        batch = {k: torch.as_tensor(v, device=device)
-                 for k, v in batch.items()}
-        model.train()
-        disc.train()
-        opt = state.optimizer
-        k = max(cfg.optim_bs, 1)
-        if state.step % k == 0:
-            opt.zero_grad(set_to_none=True)
-        with record_function("s2.forward"):
-            total, sc = loss_fn(state, batch, draws or {})
-        with record_function("s2.backward"):
-            total.backward()
-        state.step += 1
-        if state.step % k == 0:
-            with record_function("s2.optimizer"):
-                if k > 1:
-                    for group in opt.param_groups:
-                        for p in group["params"]:
-                            if p.grad is not None:
-                                p.grad.div_(k)
-                for group in opt.param_groups:
-                    group["lr"] = learning_rate(cfg, state.updates)
-                opt.step()
-            state.updates += 1
-        return state, {name: v.detach() for name, v in sc.items()}
+        return _train_step(cfg, state, batch, device, "s2",
+                           lambda b: loss_fn(state, b, draws or {}))
 
     return model, disc, lpips, init_fn, step_fn
+
+
+def build_s1_step(cfg: Config, template, device=None, impl="auto"):
+    """Returns (model, disc, lpips, init_fn, step_fn, encode_feat_fn,
+    template_update_fn) on `device` (the card unless "cpu" is asked for);
+    impl as build_s2_step's.
+
+    init_fn(seed=cfg.seed, weights_dir) -> TrainState, as stage 2's.
+    step_fn(state, batch, epoch=0.0, draws=None) -> (state, scalars):
+    epoch gates the orientation reg (epoch < stop_ori_epoch) and the
+    deform reg (epoch > update_template_freq), as the reference does;
+    draws optionally injects 'eps' [B,z_dim] and 'angles' [B].
+    encode_feat_fn(state, batch, eps=None, generator=None) -> the VAE
+    sample [B,z_dim] of the eval-mode model, no gradients.
+    template_update_fn(state, feat_mean [z_dim]) -> state with
+    mean_v += shape_predictor(feat_mean), in place."""
+    if cfg.bf16:
+        raise NotImplementedError("--bf16 is not ported")
+    if not cfg.use_gan:
+        raise NotImplementedError("the port's s1 step trains with the GAN "
+                                  "(use_gan)")
+    check_supported(cfg, stage=1)
+    device = resolve_device(device)
+    model = MeshNetS1(template, input_size=cfg.image_size,
+                      nz_feat=cfg.nz_feat, z_dim=cfg.z_dim)
+    # the GAN judges silhouettes: the predicted seen mask is its "real"
+    disc = Discriminator(lambda_=cfg.grl_wt, in_dim=1,
+                         img_size=cfg.image_size)
+    lpips = LPIPSAlex()
+    model, disc, lpips = (m.to(device) for m in (model, disc, lpips))
+    renderer, tex_renderer, hard_renderer = _renderers(cfg, impl)
+    faces = torch.as_tensor(template.faces, device=device)
+    lap = torch.as_tensor(template.laplacian, device=device)
+    flat_idx = torch.as_tensor(template.flatten_idx, device=device)
+    fused = tex_renderer.uses_kernel(device)
+    share_bins = fused and _same_bins(tex_renderer, hard_renderer)
+    init_fn = _make_init_fn(cfg, model, disc, lpips, device)
+
+    def loss_fn(state: TrainState, batch, draws, epoch):
+        with record_function("s1.model"):
+            outputs = model(batch["input_img"], eps=draws.get("eps"),
+                            generator=state.generator)
+        imgs, masks = batch["img"], batch["mask"]
+        B = imgs.shape[0]
+        pred_vs = (symmetrize(model.mean_v, template)[None]
+                   + symmetrize(outputs["delta_v"], template))
+        proj_cam = outputs["cam"]
+        tex_flow = outputs["tex_flow"]
+        tex = sample_textures(tex_flow, imgs)
+        T = tex.shape[2]
+        tex = tex.reshape(B, tex.shape[1], T * T, 3)
+
+        main_bins = None
+        with record_function("s1.pass1_fused"):
+            if share_bins:
+                main_bins = hard_renderer.compute_bins(pred_vs, faces,
+                                                       proj_cam)
+            if fused:
+                # one pass: live silhouette, rgb gradients to the texels
+                # only (the reference detaches geometry and camera in its
+                # texture render), p2f for the cycle loss
+                tex_out = tex_renderer.render(
+                    pred_vs, faces, proj_cam, tex, need_p2f=True,
+                    rgb_geom_detach=True, bins=main_bins)
+                mask_pred_seen = tex_out.rgba[..., 3]
+            else:
+                mask_pred_seen = renderer.render(
+                    pred_vs, faces, proj_cam, mask_only=True).rgba[..., 3]
+                tex_out = tex_renderer.render(
+                    pred_vs.detach(), faces, proj_cam.detach(), tex,
+                    need_p2f=True)
+
+        sc = {"mask_loss": neg_iou_loss(mask_pred_seen, masks),
+              "tri_loss": laplacian_loss(pred_vs, lap).mean(),
+              "flatten_loss": flatten_loss(pred_vs, flat_idx).mean(),
+              "deform_loss": deform_l2reg(outputs["delta_v"]),
+              "ori_loss": sym_reg(pred_vs)}
+        total = (sc["mask_loss"] * cfg.mask_loss_wt
+                 + sc["tri_loss"] * cfg.triangle_reg_wt
+                 + sc["flatten_loss"] * cfg.flatten_reg_wt)
+        # epoch-gated regularizers (ref train_s1.py:249-255)
+        if epoch < cfg.stop_ori_epoch:
+            total = total + sc["ori_loss"] * cfg.ori_reg_wt
+        if epoch > cfg.update_template_freq:
+            total = total + sc["deform_loss"] * cfg.deform_reg_wt
+
+        texture_pred = tex_out.rgba[..., :3]
+        with record_function("s1.lpips"):
+            sc["tex_loss"] = state.lpips(
+                2 * (texture_pred * mask_pred_seen[..., None]) - 1,
+                2 * (imgs * masks[..., None]) - 1).mean()
+        sc["tex_dt_loss"] = texture_dt_loss(tex_flow, batch["dts_barrier"])
+        with record_function("s1.pass2_hard"):
+            hard_out = hard_renderer.render(pred_vs.detach(), faces,
+                                            proj_cam.detach(), bins=main_bins)
+        face_ids = hard_out.aggr[:, 1].reshape(B, -1)
+        sc["tex_cycle_loss"] = tex_cycle_loss(
+            tex_flow, tex_out.p2f.detach(), face_ids.detach())[0]
+        sc["uv_flow_area"] = uv_flow_area(outputs["uvimage_pred"])
+        total = (total + sc["tex_loss"] * cfg.tex_loss_wt
+                 + sc["tex_dt_loss"] * cfg.tex_dt_loss_wt
+                 + sc["tex_cycle_loss"] * cfg.tex_cycle_loss_wt)
+
+        angles = draws.get("angles")
+        if angles is None:
+            angles = torch.randint(0, 180, (B,), generator=state.generator,
+                                   device=device)
+        random_cams = rotate_cam(proj_cam.detach(), angles)
+        with record_function("s1.pass3_gan"):
+            mask_unseen = renderer.render(pred_vs, faces, random_cams,
+                                          mask_only=True).rgba[..., 3]
+        sc["gan_loss"], sc["acc_gan"] = gan_loss(
+            state.disc, mask_pred_seen.detach()[..., None],
+            mask_unseen[..., None])
+        total = total + sc["gan_loss"] * cfg.gan_loss_wt
+        sc["total_loss"] = total
+        return total, sc
+
+    def step_fn(state: TrainState, batch, epoch=0.0,
+                draws: Optional[dict] = None):
+        return _train_step(
+            cfg, state, batch, device, "s1",
+            lambda b: loss_fn(state, b, draws or {}, float(epoch)))
+
+    @torch.no_grad()
+    def encode_feat_fn(state: TrainState, batch, eps=None, generator=None):
+        model.eval()
+        out = model(torch.as_tensor(batch["input_img"], device=device),
+                    eps=eps, generator=generator or state.generator)
+        return out["feat"]
+
+    @torch.no_grad()
+    def template_update_fn(state: TrainState, feat_mean):
+        model.mean_v += model.shape_predictor(feat_mean[None])[0]
+        return state
+
+    return (model, disc, lpips, init_fn, step_fn, encode_feat_fn,
+            template_update_fn)
 

@@ -35,16 +35,21 @@ def prepare_batch(batch, use_scops=True, use_texture=True):
 
 
 class Trainer:
-    """Epochs over the dataloader, one step_fn call per batch, stopping at
-    cfg.num_iter when it is set. history holds each step's scalars (as
-    floats) and its wall time, iter_time, from the call to the scalars'
-    arrival on the host."""
+    """Epochs over the dataloader, one step_fn(state, batch,
+    *extra_step_args(epoch)) call per batch, stopping at cfg.num_iter when
+    it is set; after each whole epoch, on_epoch_end(state, epoch) may
+    return a new state (stage 1's template update). history holds each
+    step's scalars (as floats) and its wall time, iter_time, from the call
+    to the scalars' arrival on the host."""
 
-    def __init__(self, cfg: Config, step_fn, state, dataloader):
+    def __init__(self, cfg: Config, step_fn, state, dataloader,
+                 extra_step_args=None, on_epoch_end=None):
         self.cfg = cfg
         self.step_fn = step_fn
         self.state = state
         self.dataloader = dataloader
+        self.extra_step_args = extra_step_args or (lambda epoch: ())
+        self.on_epoch_end = on_epoch_end
         self.history = []
         # the GAN's "real" images lag one batch behind, as the reference's
         # random_imgs buffer (filled from the first batch, refreshed after
@@ -62,7 +67,8 @@ class Trainer:
                     db["real_imgs"] = self._lagged_real
                 self._lagged_real = cur_real
                 start = time.perf_counter()
-                self.state, scalars = self.step_fn(self.state, db)
+                self.state, scalars = self.step_fn(
+                    self.state, db, *self.extra_step_args(epoch))
                 values = torch.stack(list(scalars.values())).cpu().tolist()
                 sc = dict(zip(scalars, values))
                 sc["iter_time"] = time.perf_counter() - start
@@ -72,4 +78,8 @@ class Trainer:
                         f"{k} {v:.4f}" for k, v in sc.items()), flush=True)
                 if cfg.num_iter and self.state.step >= cfg.num_iter:
                     return self.state
+            # the epoch's last step has finished: its scalars are on the
+            # host
+            if self.on_epoch_end is not None:
+                self.state = self.on_epoch_end(self.state, epoch) or self.state
         return self.state
