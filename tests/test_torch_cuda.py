@@ -21,6 +21,7 @@ import torch
 
 from torch_parity import random_scene
 from umr_tpu_torch.ops import raster_kernel
+from umr_tpu_torch.ops.raster_bins import compute_raster_bins
 from umr_tpu_torch.ops.rasterize import soft_rasterize
 from umr_tpu_torch.ops.rasterize_bwd import soft_rasterize_bwd
 
@@ -127,3 +128,104 @@ def test_backward_kernel_matches_plain(cuda, opts):
         torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5 * scale)
     if opts.get("tex_grads", True) and not opts.get("mask_only"):
         assert gt.abs().max() > 0
+
+
+# scenes that reach what the backward's work split (one warp per face,
+# over the face's pixel rectangle in the tile) can get wrong; 64^2 images,
+# two tiles per axis, KW's soft edges (the bbox margin is ~5 pixels)
+def _tile0(rng, F, lo=0.3, hi=0.75):
+    """F small faces inside tile (0, 0), margin included: x in -[hi, lo],
+    y in [lo, hi] (NDC)."""
+    c = np.stack([-rng.uniform(lo, hi, F), rng.uniform(lo, hi, F)], -1)
+    xy = c[:, None] + rng.uniform(-0.06, 0.06, (F, 3, 2))
+    return np.clip(xy, [-hi, lo], [-lo, hi])
+
+
+def _bwd_scene(kind, rng):
+    """(faces [2,F,3,3], textures [2,F,9,3], mf_cap, faces the kernel
+    keeps: the first n of each image)."""
+    if kind == "whole_tile":
+        # one face over all of tile (0, 0), its hypotenuse (y = x - 0.3)
+        # through the other tiles, and a small face clear of it
+        xy = np.array([[[-1.5, 1.5], [1.8, 1.5], [-1.5, -1.8]],
+                       [[0.3, -0.8], [0.8, -0.7], [0.5, -0.3]]])
+        F, cap = 2, 64
+    elif kind == "pixel_and_sliver":
+        px = 2.0 / 64                       # one pixel, NDC
+        c = rng.uniform(-0.8, 0.8, (12, 1, 2))
+        tiny = c + px * np.array([[0.0, 0.0], [1.0, 0.0], [0.0, 1.0]])
+        long_ = rng.uniform(-0.9, 0.9, (6, 1, 2))
+        d = rng.uniform(-1.0, 1.0, (6, 1, 2))
+        sliver = long_ + np.concatenate(
+            [0 * d, 0.8 * d, 0.8 * d + 0.3 * px * d[..., ::-1] * [1, -1]], 1)
+        xy = np.concatenate([tiny, sliver])
+        F, cap = xy.shape[0], 64
+    elif kind == "many_in_one_tile":
+        xy = _tile0(rng, 80)                # 3 chunks of 32, 10 per warp
+        F, cap = 80, 128
+    elif kind == "truncated":
+        xy = _tile0(rng, 56)                # the kernel keeps the first 40
+        F, cap = 56, 40
+    elif kind == "outside_depth":
+        xy = rng.uniform(-0.9, 0.9, (24, 3, 2))
+        F, cap = 24, 64
+    faces = np.zeros((2, F, 3, 3), np.float32)
+    faces[..., :2] = xy
+    faces[1, ..., :2] = xy[:, ::-1] * [1, -1]     # mirrored in y
+    faces[..., 2] = 7.0 + rng.uniform(-1.0, 1.0, (2, F, 3))
+    if kind == "outside_depth":
+        # in front of near, past far, and straddling near within a face
+        faces[:, 0:8, :, 2] = rng.uniform(0.3, 0.9, (2, 8, 3))
+        faces[:, 8:16, :, 2] = rng.uniform(101.0, 150.0, (2, 8, 3))
+        faces[:, 16:24, 0, 2] = 0.5
+    tex = rng.uniform(0.0, 1.0, (2, F, 9, 3)).astype(np.float32)
+    return faces, tex, cap, min(F, cap)
+
+
+@pytest.mark.parametrize("kind", ["whole_tile", "pixel_and_sliver",
+                                  "many_in_one_tile", "truncated",
+                                  "outside_depth"])
+@pytest.mark.parametrize("opts", [
+    {}, {"rgb_geom_detach": True}, {"tex_grads": False}, {"mask_only": True}],
+    ids=["default", "rgb_geom_detach", "no_tex_grads", "mask_only"])
+def test_backward_kernel_work_split(cuda, kind, opts):
+    """Each lane group (vertex x, y; vertex z; texels) within 1e-4
+    relative plus 1e-5 of the group's largest gradient of the plain
+    version on the faces the kernel keeps; the dropped faces get none."""
+    rng = np.random.RandomState(5)
+    faces, tex, cap, kept = _bwd_scene(kind, rng)
+    g = torch.as_tensor(rng.standard_normal((2, 64, 64, 4)).astype(
+        np.float32), device=cuda)
+    fv = torch.as_tensor(faces, device=cuda).requires_grad_()
+    tx = torch.as_tensor(tex, device=cuda).requires_grad_()
+    # an entry cap that drops nothing: the default (8 entries a face)
+    # would drop tiles of the two-face scene; only mf_cap truncates
+    F = faces.shape[1]
+    bins = compute_raster_bins(fv.detach(), 64, raster_kernel.TILE_SIZE,
+                               KW["sigma_val"], KW["dist_eps"], cap,
+                               raster_kernel.MAX_COVER, 16 * F + 32)
+    out = raster_kernel.soft_rasterize_fwd(fv, tx, mf_cap=cap, bins=bins,
+                                           **opts, **KW)
+    (out.rgba * g).sum().backward()
+    torch.cuda.synchronize()
+    kf, kt = fv.grad[:, :kept], tx.grad[:, :kept]
+    assert not fv.grad[:, kept:].any() and not tx.grad[:, kept:].any()
+    rf, rt = fv.detach()[:, :kept].contiguous(), tx.detach()[:, :kept]
+    ref = soft_rasterize(rf, rt.contiguous(),
+                         mask_only=opts.get("mask_only", False), **KW)
+    torch.testing.assert_close(out.rgba, ref.rgba, atol=1e-3, rtol=0)
+    bkw = {k: v for k, v in KW.items() if k != "background_color"}
+    gf, gt = soft_rasterize_bwd(rf, rt.contiguous(), ref.rgba, ref.aggr, g,
+                                **opts, **bkw)
+    mask_only = opts.get("mask_only", False)
+    want_tex = opts.get("tex_grads", True) and not mask_only
+    want_z = not (mask_only or opts.get("rgb_geom_detach", False))
+    for got, want, live in ((kf[..., :2], gf[..., :2], True),
+                            (kf[..., 2], gf[..., 2], want_z),
+                            (kt, gt, want_tex)):
+        if not live:
+            assert not got.any() and not want.any()
+            continue
+        scale = want.abs().max().item()
+        assert scale > 0
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5 * scale)

@@ -89,27 +89,30 @@ def _run(cmds):
     return "".join(outs)
 
 
-def build():
-    """Compile csrc/*.cu (once per source hash) and load the library."""
-    global _lib, BUILD_LOG
-    if _lib is not None:
-        return _lib
-    sources = sorted(CSRC.glob("*.cu"))
+def build_library(csrc, build_dir):
+    """Compile csrc/*.cu (once per hash of the sources and flags) into a
+    shared library under build_dir and load it; returns (the library,
+    nvcc's output, kept beside the library)."""
+    csrc, build_dir = Path(csrc), Path(build_dir)
+    sources = sorted(csrc.glob("*.cu"))
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources + sorted(CSRC.glob("*.cuh")):
+    for src in sources + sorted(csrc.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
-    so = BUILD_DIR / f"libumr_kernels_{h.hexdigest()[:16]}.so"
+    so = build_dir / f"libumr_kernels_{h.hexdigest()[:16]}.so"
+    log_path = so.with_suffix(".log")
     if not so.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        build_dir.mkdir(parents=True, exist_ok=True)
+        with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
             objs = [os.path.join(tmp, s.stem + ".o") for s in sources]
             nvcc = _nvcc()
-            BUILD_LOG = _run([[nvcc, *NVCC_FLAGS, "-c", "-o", o, str(s)]
-                              for s, o in zip(sources, objs)])
+            log = _run([[nvcc, *NVCC_FLAGS, "-c", "-o", o, str(s)]
+                        for s, o in zip(sources, objs)])
             out = os.path.join(tmp, so.name)
-            BUILD_LOG += _run([[nvcc, *ARCH, "-shared", "-o", out, *objs]])
+            log += _run([[nvcc, *ARCH, "-shared", "-o", out, *objs]])
+            log_path.write_text(log)
             os.replace(out, so)
+    log = log_path.read_text() if log_path.exists() else ""
     lib = ctypes.CDLL(str(so))
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.umr_raster_fwd.argtypes = (
@@ -120,8 +123,40 @@ def build():
     lib.umr_raster_bwd.restype = ci
     lib.umr_cuda_error_string.argtypes = [ci]
     lib.umr_cuda_error_string.restype = ctypes.c_char_p
-    _lib = lib
-    return lib
+    return lib, log
+
+
+def build():
+    """Compile the package's csrc/*.cu (once per source hash) and load the
+    library the wrappers launch."""
+    global _lib, BUILD_LOG
+    if _lib is None:
+        _lib, BUILD_LOG = build_library(CSRC, BUILD_DIR)
+    return _lib
+
+
+def pixel_rect(box, S, tile):
+    """The backward kernel's pixel rectangle (csrc/raster_bwd.cu::
+    pixel_rect), in plain torch: box [..., 4] float32 margin-expanded
+    bboxes (maxx + m, minx - m, maxy + m, miny - m, as face_setup writes
+    them) and the tile index -> int64 [..., 4] (col0, row0, width,
+    height) in tile-local pixels; width or height <= 0 when empty. Used
+    by the tests, to show the rectangle holds every pixel the bbox test
+    passes."""
+    b = box.double()
+    TX = S // TILE_SIZE
+    x0 = torch.as_tensor((tile % TX) * TILE_SIZE, dtype=torch.float64)
+    y0 = torch.as_tensor((tile // TX) * TILE_SIZE, dtype=torch.float64)
+    c_lo = torch.ceil((b[..., 1] * S + (S - 1.0)) * 0.5 - 1e-3)
+    c_hi = torch.floor((b[..., 0] * S + (S - 1.0)) * 0.5 + 1e-3)
+    r_lo = torch.ceil(((S - 1.0) - b[..., 2] * S) * 0.5 - 1e-3)
+    r_hi = torch.floor(((S - 1.0) - b[..., 3] * S) * 0.5 + 1e-3)
+    c0 = torch.minimum(torch.maximum(c_lo, x0), x0 + TILE_SIZE)
+    c1 = torch.maximum(torch.minimum(c_hi, x0 + TILE_SIZE - 1), x0 - 1)
+    r0 = torch.minimum(torch.maximum(r_lo, y0), y0 + TILE_SIZE)
+    r1 = torch.maximum(torch.minimum(r_hi, y0 + TILE_SIZE - 1), y0 - 1)
+    return torch.stack([c0 - x0, r0 - y0, c1 - c0 + 1, r1 - r0 + 1],
+                       -1).long()
 
 
 def _check(t, name, shape, dtype, device):
