@@ -1,7 +1,9 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU (H100): builds the CUDA
 rasterizer kernels (forward, with its p2f instance, and backward) from
-csrc/, holds each against its plain version at the main paths' shapes and
-against the golden oracle, drives the inference slice (test_iou.run at
+csrc/, holds each against its plain version at the main paths' shapes
+(every forward and backward instance the training steps launch, on
+8-image slices of the steps' own renders) and against the golden oracle,
+drives the inference slice (test_iou.run at
 full s2 width, batch 32; demo.render_panels), the stage-2 training slice
 (train_s2.run at full s2 width, batch 16, 6 steps; one step with
 cycle_soft_p2f) and the stage-1 training slice (train_s1.run at full s1
@@ -118,26 +120,31 @@ def sphere_scenes(renderer, template, B, T2, seed, dev):
 
 
 def compare(name, out, ref, hard):
-    """Kernel output vs plain version; returns max |rgba| difference."""
+    """Kernel output vs plain version; returns the readings: max |rgba|
+    difference ("rgba") and the hard body's share of covered pixels with
+    equal face id and depth ("hard_equal") or the softmax sum's and max's
+    largest relative difference ("sum_rel", "max_rel")."""
     err = (out.rgba - ref.rgba).abs().max().item()
+    got = {"rgba": err}
     msg = f"{name}: rgba max|diff| {err:.3e} (<= {RGBA_ATOL})"
     assert err <= RGBA_ATOL, msg
     if hard:
         cov = ref.aggr[:, 1] >= 0
         same = ((out.aggr[:, 1] == ref.aggr[:, 1])
                 & (out.aggr[:, 0] == ref.aggr[:, 0]))
-        share = same[cov].float().mean().item()
+        got["hard_equal"] = share = same[cov].float().mean().item()
         msg += (f"; face id + depth equal on {share:.6f} of "
                 f"{int(cov.sum())} covered pixels (>= {HARD_SHARE})")
         assert share >= HARD_SHARE, msg
     else:
         rel = ((out.aggr - ref.aggr).abs() / ref.aggr.abs()).amax(
             dim=(0, 2, 3))
+        got["sum_rel"], got["max_rel"] = rel[0].item(), rel[1].item()
         msg += (f"; softmax sum rel {rel[0].item():.3e}, max rel "
                 f"{rel[1].item():.3e} (<= {AGGR_RTOL})")
         assert rel.max().item() <= AGGR_RTOL, msg
     print(msg, flush=True)
-    return err
+    return got
 
 
 def grad_check(name, got, want, opts):
@@ -356,7 +363,7 @@ def main():
         ref = soft_rasterize(fv, tex, **kw)
         max_err = max(max_err, compare(
             f"{mode} T2={T2} B={SCENE_B} F={F} S={S} cap={cap} (fullest tile "
-            f"{most} entries)", out, ref, mode == "hard"))
+            f"{most} entries)", out, ref, mode == "hard")["rgba"])
 
     gkw = dict(image_size=32, sigma_val=3e-3, gamma_val=1e-2, dist_eps=1e-4,
                background_color=(0.1, 0.2, 0.3))
@@ -450,7 +457,8 @@ def main():
             cap, raster_kernel.MAX_COVER), 20)
         ms_p, ref = cuda_time(lambda: soft_rasterize(fv, tex, **kw),
                               plain_reps)
-        err = compare(label, out, ref, kw.get("aggr_func_rgb") == "hard")
+        err = compare(label, out, ref,
+                      kw.get("aggr_func_rgb") == "hard")["rgba"]
         print(f"{label}: kernel with binning {ms_k:.3f} ms (binning alone "
               f"{ms_b:.3f} ms), plain {ms_p:.1f} ms [{smi}]")
         return ms_k, ms_b, ms_p, err
@@ -563,6 +571,28 @@ def main():
               f"backward {ms_p:.1f} ms, bound {sb[0]:.3f} ms ({sb[1]}) "
               f"[{smi}]", flush=True)
         return dict(ms=ms_k, plain_ms=ms_p, bound=sb, max_abs=e, max_rel=rel)
+
+    def check_fwd_slice(label, r, sel):
+        """The forward kernel on images sel of a recorded render, on bins
+        that drop nothing, against the plain version (its default
+        face_chunk: no p2f is read here) at compare's limits; then the
+        kernel's time and the plain version's. Returns the readings."""
+        sl = slice_of(r, sel, whole=True)
+        kw = sl["kw"]
+        ms_k, out = cuda_time(lambda: render_fwd(sl), 10)
+        plain_kw = {k: kw[k] for k in (
+            "image_size", "background_color", "sigma_val", "dist_eps",
+            "gamma_val", "aggr_func_rgb", "mask_only")}
+        with torch.no_grad():
+            ms_p, ref = cuda_time(lambda: soft_rasterize(
+                sl["fv"], sl["tex"], **plain_kw), 1, warmup=0)
+        got = compare(
+            f"{label} forward slice: {len(sel)} images {sel.tolist()} on "
+            f"bins that drop nothing ({fwd_kernel(sl)})", out, ref,
+            kw["aggr_func_rgb"] == "hard")
+        print(f"{label} forward slice: kernel {ms_k:.3f} ms, plain "
+              f"{ms_p:.1f} ms [{smi}]", flush=True)
+        return dict(got, images=sel.tolist(), ms=ms_k, plain_ms=ms_p)
 
     def check_cap(fv_, label):
         """The plain version renders every face: it meets the kernel only
@@ -715,6 +745,18 @@ def main():
           f"bbox, past the threshold, in depth: {hard_counts}): forward "
           f"kernel {ms_h:.3f} ms (bound {hb[0]:.3f} ms, {hb[1]}; "
           f"{regs(fwd_kernel(r))}) [{smi}]")
+
+    # every forward instance the step launches against the plain version,
+    # on FOLD_SLICE images of each pass spread over the pass, on bins that
+    # drop nothing (the plain version renders every face)
+    fwd_slices = {}
+    for label in ("fold", "hard", "merged"):
+        n_img = s2r[label]["fv"].shape[0]
+        sel = torch.linspace(0, n_img - 1, FOLD_SLICE,
+                             device=dev).round().long()
+        fwd_slices["s2 " + label] = check_fwd_slice(f"s2 {label}",
+                                                    s2r[label], sel)
+        max_err = max(max_err, fwd_slices["s2 " + label]["rgba"])
 
     # the plain backward is dense over all pairs: minutes at a whole pass,
     # and it renders every face, so kernel and plain meet on FOLD_SLICE
@@ -875,13 +917,22 @@ def main():
             lambda: soft_rasterize(sl["fv"], sl["tex"], **pkw), 1, warmup=0)
     name = (f"s1 fused slice: {P2F_SLICE} images (images {sel.tolist()}, "
             "on bins that drop nothing)")
-    max_err = max(max_err, compare(name, out, ref, False))
+    fwd_slices["s1 fused"] = dict(compare(name, out, ref, False),
+                                  images=sel.tolist(), ms=p2f_slice_ms,
+                                  plain_ms=p2f_plain_ms)
+    max_err = max(max_err, fwd_slices["s1 fused"]["rgba"])
     p2f_err = max(p2f_err, p2f_check(name, out, ref))
     _, slice_bound, _ = render_bounds(sl)
     print(f"s1 fused slice: p2f kernel {p2f_slice_ms:.3f} ms, plain "
           f"(face_chunk=1) {p2f_plain_ms:.1f} ms, bound "
           f"{slice_bound[0]:.3f} ms ({slice_bound[1]}) [{smi}]")
     del out, ref
+
+    # the other two s1 forward instances against the plain version, on the
+    # same images
+    for label in ("s1 hard", "s1 gan"):
+        fwd_slices[label] = check_fwd_slice(label, s1r[label], sel)
+        max_err = max(max_err, fwd_slices[label]["rgba"])
 
     # the backward at both s1 launches against the plain version, on the
     # same slices' bins that drop nothing
@@ -997,6 +1048,7 @@ def main():
         "s1_hard_bound_ms": s1_shapes["s1 hard"]["fwd_bound"][0],
         "s1_gan_ms": s1_shapes["s1 gan"]["fwd_ms"],
         "s1_gan_bound_ms": s1_shapes["s1 gan"]["fwd_bound"][0],
+        "step_slices": fwd_slices,
         "ptxas": {k: v for k, v in usage.items()
                   if k.startswith("raster_fwd")},
     }, {

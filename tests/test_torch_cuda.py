@@ -22,7 +22,7 @@ import torch
 from torch_parity import random_scene
 from umr_tpu_torch.ops import raster_kernel
 from umr_tpu_torch.ops.raster_bins import compute_raster_bins
-from umr_tpu_torch.ops.rasterize import soft_rasterize
+from umr_tpu_torch.ops.rasterize import soft_rasterize, threshold_of
 from umr_tpu_torch.ops.rasterize_bwd import soft_rasterize_bwd
 
 pytestmark = pytest.mark.cuda
@@ -229,3 +229,169 @@ def test_backward_kernel_work_split(cuda, kind, opts):
         scale = want.abs().max().item()
         assert scale > 0
         torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5 * scale)
+
+
+# scenes that reach what the forward's work split (a mask of bbox hits per
+# pixel, the warp's walk over the union of its lanes' masks, 8x4 pixel
+# blocks per slot, pixel accumulators in shared memory) can get wrong; 64^2
+# images, two tiles per axis
+def _bound_near(target, m, sign):
+    """(x, fl32(x + sign * m)): the float32 x whose bbox bound (the face's
+    extreme coordinate plus or minus the margin, in float32, as the kernel
+    and the plain version compute it) lies nearest to target."""
+    t, m, sg = np.float32(target), np.float32(m), np.float32(sign)
+    x = np.float32(t - sg * m)
+    cands = [x]
+    for d in (np.inf, -np.inf):
+        y = x
+        for _ in range(8):
+            y = np.nextafter(y, np.float32(d), dtype=np.float32)
+            cands.append(y)
+    x = min(cands, key=lambda c: abs(float(np.float32(c + sg * m)) - float(t)))
+    return x, np.float32(x + sg * m)
+
+
+def _centre(i, S=64):
+    """Pixel centre coordinate of column i (float32, exact at S = 64); a
+    row r's is -_centre(r)."""
+    return np.float32((2 * i + 1 - S) / S)
+
+
+def _ulps(v, k):
+    for _ in range(abs(k)):
+        v = np.nextafter(v, np.float32(np.inf if k > 0 else -np.inf),
+                         dtype=np.float32)
+    return v
+
+
+def _edge_faces(rng, margin, n=24):
+    """n right triangles whose margin-expanded bbox has its left and top
+    bounds on pixel centres at the borders of the kernel's 8x4 blocks
+    (the first column of a block, the first row of one), or a few ulps to
+    either side; the legs run along those bounds at the margin, so the
+    pixels on them sit at the cull distance. Returns (xy [n, 3, 2], the
+    bounds' distances from the centres in ulps, the first column and row
+    each face's bbox test passes)."""
+    xy, off, first = np.zeros((n, 3, 2), np.float32), [], []
+    for i in range(n):
+        c_lo = 8 * rng.randint(0, 7)                  # a block's first column
+        r_lo = 4 * rng.randint(0, 15)                 # a block's first row
+        k = (-1, 0, 1)[i % 3]
+        cx, cy = _centre(c_lo), -_centre(r_lo)
+        x_lo, bx = _bound_near(_ulps(cx, k), margin, -1)
+        y_hi, by = _bound_near(_ulps(cy, -k), margin, 1)
+        w = 2.0 / 64 * rng.randint(2, 12)
+        h = 2.0 / 64 * rng.randint(2, 12)
+        # right angle at the top left: legs along x = x_lo, y = y_hi
+        xy[i] = [[x_lo, y_hi], [x_lo + w, y_hi], [x_lo, y_hi - h]]
+        ulp = float(np.spacing(np.float32(abs(cx)) or np.float32(1)))
+        ulp_y = float(np.spacing(np.float32(abs(cy)) or np.float32(1)))
+        off.append(((float(bx) - float(cx)) / ulp,
+                    (float(by) - float(cy)) / ulp_y))
+        # a centre passes min x - m <= xp and yp <= max y + m
+        first.append((c_lo + int(cx < bx), r_lo + int(cy > by)))
+    return xy, off, first
+
+
+def _fwd_scene(kind, rng):
+    """(faces [2,F,3,3], textures [2,F,9,3], mf_cap, faces the kernel
+    keeps (the first n of each image), render keywords)."""
+    kw = dict(KW)
+    if kind == "exact_cap":
+        xy = _tile0(rng, 64)                # two full chunks in tile (0, 0)
+        F, cap = 64, 64
+    elif kind == "over_cap":
+        xy = _tile0(rng, 72)                # the kernel keeps the first 40
+        F, cap = 72, 40
+    elif kind == "one_pixel_bbox":
+        # the renderer's sigma: a 0.1-pixel face on a pixel centre, whose
+        # margin-expanded bbox holds that pixel alone
+        kw.update(sigma_val=1e-5, dist_eps=1e-10, gamma_val=1e-4)
+        px = 2.0 / 64
+        cells = rng.choice(64 * 64, 24, replace=False)
+        c = np.stack([(2 * (cells % 64) + 1 - 64) / 64,
+                      -(2 * (cells // 64) + 1 - 64) / 64], -1)
+        xy = c[:, None] + 0.1 * px * np.array([[-0.5, -0.3], [0.5, -0.3],
+                                               [0.0, 0.5]])
+        F, cap = 24, 64
+    elif kind == "block_edges":
+        # fragments at the cull distance are dist_eps: 0.1 here, so a
+        # pixel left out of the walk would show in alpha
+        kw.update(dist_eps=0.1)
+        _, margin = threshold_of(kw["sigma_val"], kw["dist_eps"])
+        xy, _, _ = _edge_faces(rng, margin)
+        F, cap = xy.shape[0], 64
+    elif kind == "whole_tile":
+        xy = np.array([[[-1.5, 1.5], [1.8, 1.5], [-1.5, -1.8]],
+                       [[0.3, -0.8], [0.8, -0.7], [0.5, -0.3]]])
+        F, cap = 2, 64
+    elif kind == "degenerate_among_live":
+        xy = rng.uniform(-0.9, 0.9, (30, 3, 2))
+        xy[::3, 2] = xy[::3, 0]             # two corners equal
+        xy[1::6, :, 1] = xy[1::6, :1, 1]    # three corners on one line
+        F, cap = 30, 64
+    elif kind == "overlap_order":
+        # one face over another at another depth; image 1 holds them in
+        # the other id order, so p2f (weighed by the running max after
+        # each face) pins the order the faces are walked in
+        xy = np.array([[[-0.6, -0.5], [0.5, -0.6], [0.0, 0.6]],
+                       [[-0.5, -0.3], [0.6, -0.4], [0.1, 0.7]]])
+        F, cap = 2, 64
+    faces = np.zeros((2, F, 3, 3), np.float32)
+    faces[..., :2] = xy
+    if kind != "overlap_order":
+        faces[1, ..., :2] = xy[:, ::-1] * [1, -1]     # mirrored in y
+    faces[..., 2] = 7.0 + rng.uniform(-1.0, 1.0, (2, F, 3))
+    if kind == "overlap_order":
+        faces[0, 0, :, 2], faces[0, 1, :, 2] = 6.0, 8.0
+        faces[1] = faces[0, ::-1]
+    tex = rng.uniform(0.0, 1.0, (2, F, 9, 3)).astype(np.float32)
+    return faces, tex, cap, min(F, cap), kw
+
+
+FWD_KINDS = ["exact_cap", "over_cap", "one_pixel_bbox", "block_edges",
+             "whole_tile", "degenerate_among_live", "overlap_order"]
+
+
+@pytest.mark.parametrize("kind", FWD_KINDS)
+@pytest.mark.parametrize("mode", ["softmax", "mask_only", "hard",
+                                  "softmax_p2f", "mask_only_p2f"])
+def test_forward_kernel_work_split(cuda, kind, mode):
+    """rgba within 1e-3, softmax (sum, max) within 1e-4 relative, hard
+    face ids and depths equal on >= 99.9% of covered pixels, p2f within
+    P2F_ATOL of the plain version at face_chunk=1, on the faces the kernel
+    keeps; the dropped faces get no p2f."""
+    rng = np.random.RandomState(7)
+    faces, tex, cap, kept, kw = _fwd_scene(kind, rng)
+    hard = mode == "hard"
+    need_p2f = mode.endswith("_p2f")
+    kw = dict(kw, aggr_func_rgb="hard" if hard else "softmax",
+              mask_only=mode.startswith("mask_only"))
+    fv = torch.as_tensor(faces, device=cuda)
+    tx = torch.as_tensor(tex, device=cuda)
+    # an entry cap that drops nothing: only mf_cap truncates
+    F = faces.shape[1]
+    bins = compute_raster_bins(fv, 64, raster_kernel.TILE_SIZE,
+                               kw["sigma_val"], kw["dist_eps"], cap,
+                               raster_kernel.MAX_COVER, 16 * F + 32)
+    out = raster_kernel.soft_rasterize_fwd(fv, tx, mf_cap=cap, bins=bins,
+                                           need_p2f=need_p2f, **kw)
+    torch.cuda.synchronize()
+    ref = soft_rasterize(fv[:, :kept].contiguous(),
+                         tx[:, :kept].contiguous(), need_p2f=need_p2f,
+                         **({"face_chunk": 1} if need_p2f else {}), **kw)
+    torch.testing.assert_close(out.rgba, ref.rgba, atol=1e-3, rtol=0)
+    if hard:
+        cov = ref.aggr[:, 1] >= 0
+        same = ((out.aggr[:, 1] == ref.aggr[:, 1])
+                & (out.aggr[:, 0] == ref.aggr[:, 0]))
+        assert cov.any() and same[cov].float().mean() >= 0.999
+    else:
+        torch.testing.assert_close(out.aggr, ref.aggr, rtol=1e-4, atol=0)
+    if need_p2f:
+        torch.testing.assert_close(out.p2f[:, :kept], ref.p2f,
+                                   atol=P2F_ATOL, rtol=0)
+        assert not out.p2f[:, kept:].any()
+        assert ref.p2f.abs().sum() > 0
+    else:
+        assert not out.p2f.any()

@@ -1,7 +1,8 @@
 """The kernel yardstick's pieces on the CPU: step_renders records the
 renders a training step draws on the kernels' route (driven here through
-the kernels' plain versions, impl="kernel"), and raster_bound charges
-each branch's operations to the pairs that reach it."""
+the kernels' plain versions, impl="kernel"), raster_bound charges each
+branch's operations to the pairs that reach it, and raster_bench reads
+outputs and SASS across builds."""
 
 import numpy as np
 import pytest
@@ -10,11 +11,13 @@ import torch
 from umr_tpu_torch.config import Config
 from umr_tpu_torch.data import synthetic_batch
 from umr_tpu_torch.experiments import raster_bench
-from umr_tpu_torch.experiments.raster_bound import (OPS_BOX, PEAK_FLOPS,
-                                                    raster_bound)
+from umr_tpu_torch.experiments.raster_bound import (OPS_BOX, OPS_DIST,
+                                                    PEAK_FLOPS, block_steps,
+                                                    pair_counts, raster_bound)
 from umr_tpu_torch.losses.composite import PartMatchingLoss
 from umr_tpu_torch.mesh import build_template
 from umr_tpu_torch.ops import raster_kernel
+from umr_tpu_torch.ops.raster_bins import compute_raster_bins
 from umr_tpu_torch.renderer import SoftRenderer
 from umr_tpu_torch.training import steps
 from umr_tpu_torch.training.trainer import prepare_batch
@@ -105,7 +108,7 @@ def test_step_renders_counts_the_renders():
 def test_backward_bound_charges_the_bbox_test_on_bbox_pairs(opts):
     """The backward walks each face's pixel rectangle: its bound does not
     grow with the binned slots, and charges the bbox test on the pairs in
-    the bbox. The forward tests every slot."""
+    the bbox. So does the forward's (see the test below)."""
     fv = torch.zeros((2, 8, 3, 3))
     tex = torch.zeros((2, 8, 4, 3))
     bins = (torch.zeros((2, 64), dtype=torch.int32),
@@ -118,5 +121,105 @@ def test_backward_bound_charges_the_bbox_test_on_bbox_pairs(opts):
     less = raster_bound(fewer_box, fv, tex, bins, 64, opts)
     assert bwd[0] - less[0] >= 10**8 * OPS_BOX / PEAK_FLOPS * 1e3 * 0.999
     fwd = raster_bound(counts, fv, tex, bins, 64)
-    assert raster_bound(more_slots, fv, tex, bins, 64)[0] == pytest.approx(
-        fwd[0] + 3 * 10**9 * OPS_BOX / PEAK_FLOPS * 1e3)
+    assert raster_bound(more_slots, fv, tex, bins, 64) == fwd
+
+
+@pytest.mark.parametrize("kind", [{}, {"p2f": True}, {"hard": True}],
+                         ids=["softmax", "p2f", "hard"])
+def test_forward_bound_charges_the_bbox_test_on_bbox_pairs(kind):
+    """The function needs no test outside a face's bbox: the forward's
+    bound does not grow with the binned slots, and each pair in a bbox is
+    charged the bbox test with the distance code."""
+    fv = torch.zeros((2, 8, 3, 3))
+    tex = torch.zeros((2, 8, 4, 3))
+    bins = (torch.zeros((2, 64), dtype=torch.int32),
+            torch.zeros((2, 5), dtype=torch.int32))
+    counts = [10**9, 2 * 10**8, 10**8, 10**8]
+    fwd = raster_bound(counts, fv, tex, bins, 64, **kind)
+    assert fwd[1] == "operations"
+    assert raster_bound([4 * 10**9] + counts[1:], fv, tex, bins, 64,
+                        **kind) == fwd
+    less = raster_bound(counts[:1] + [10**8] + counts[2:], fv, tex, bins, 64,
+                        **kind)
+    assert fwd[0] - less[0] == pytest.approx(
+        10**8 * (OPS_BOX + OPS_DIST) / PEAK_FLOPS * 1e3)
+
+
+def _out(rgba, aggr, p2f):
+    return raster_kernel.RasterOut(rgba=rgba, aggr=aggr, p2f=p2f)
+
+
+def test_compare_outputs_across_builds():
+    """The readings raster_bench prints beside each build's times: max
+    |diff| of rgba, aggr and p2f against the first build, and for the hard
+    body the share of covered pixels whose face id and depth agree."""
+    g = torch.Generator().manual_seed(0)
+    rgba = torch.rand((2, 8, 8, 4), generator=g)
+    depth = 1.0 + torch.rand((2, 8, 8), generator=g)
+    fid = torch.randint(0, 5, (2, 8, 8), generator=g).float()
+    fid[0, :2] = -1.0                                  # 16 uncovered pixels
+    depth[fid < 0] = 1e7
+    aggr = torch.stack([depth, fid], 1)
+    p2f = torch.rand((2, 5, 2), generator=g)
+    ref = _out(rgba, aggr, p2f)
+    same = raster_bench.compare_outputs(ref, _out(rgba.clone(), aggr.clone(),
+                                                  p2f.clone()), hard=True)
+    assert same == dict(rgba=0.0, aggr=0.0, p2f=0.0, hard_equal=1.0)
+    # one covered pixel's winner differs; an uncovered one does not count
+    a2 = aggr.clone()
+    a2[1, 1, 3, 4] += 1.0
+    a2[0, 0, 0, 0] = 3.0
+    rg2 = rgba.clone()
+    rg2[0, 5, 5, 1] += 0.25
+    p2 = p2f.clone()
+    p2[1, 2, 0] -= 1e-3
+    d = raster_bench.compare_outputs(ref, _out(rg2, a2, p2), hard=True)
+    assert d["rgba"] == pytest.approx(0.25)
+    assert d["aggr"] == pytest.approx(1e7 - 3.0)
+    assert d["p2f"] == pytest.approx(1e-3, rel=1e-3)
+    assert d["hard_equal"] == pytest.approx(1.0 - 1.0 / (128 - 16))
+    soft = raster_bench.compare_outputs(ref, _out(rg2, a2, p2), hard=False)
+    assert soft["hard_equal"] is None and soft["rgba"] == d["rgba"]
+
+
+def test_shared_atomics_from_sass():
+    """cuobjdump -sass text: each kernel's shared-memory atomics, by
+    opcode, under its short name; a kernel without any maps to {}."""
+    sass = """
+	code for sm_90a
+		Function : _ZN12_GLOBAL__N_117raster_fwd_kernelILb0ELb0ELb1EEEvPKfS2_PKiS4_PfS5_S5_N3umr6ParamsE
+	.headerflags	@"EF_CUDA_TEXMODE_UNIFIED EF_CUDA_64BIT_ADDRESS"
+        /*0010*/                   FADD R1, R2, R3 ;
+        /*0020*/                   ATOMS.CAST.SPIN P0, [R2], R4, R5 ;
+        /*0030*/                   ATOMS.CAST.SPIN P0, [R2+0x4], R4, R5 ;
+		Function : _ZN12_GLOBAL__N_117raster_bwd_kernelILb1ELb0EEEvPKfS2_PKiS4_S2_S2_S2_PfS5_N3umr6ParamsE
+        /*0010*/                   ATOMS.ADD R3, [UR4], R0 ;
+        /*0020*/                   RED.E.ADD.F32.FTZ.RN.STRONG.GPU [R2.64], R5 ;
+		Function : _ZN12_GLOBAL__N_117raster_fwd_kernelILb1ELb0ELb0EEEvPKfS2_PKiS4_PfS5_S5_N3umr6ParamsE
+        /*0010*/                   RED.E.ADD.F32.FTZ.RN.STRONG.GPU [R2.64], R5 ;
+"""
+    assert raster_bench.shared_atomics(sass) == {
+        "raster_fwd_kernel<0,0,1>": {"ATOMS.CAST.SPIN": 2},
+        "raster_bwd_kernel<1,0>": {"ATOMS.ADD": 1},
+        "raster_fwd_kernel<1,0,0>": {},
+    }
+
+
+def test_block_steps_hold_the_bbox_pairs():
+    """The forward's walk visits every pair in a bbox: 32 lanes per block
+    step cover the pairs in the bbox, and the steps cover no more than the
+    binned slots; a degenerate face takes none."""
+    from torch_parity import random_scene
+
+    faces, _ = random_scene(np.random.RandomState(1), B=2, F=40, T2=1)
+    faces[:, :5, 2, :2] = faces[:, :5, 0, :2]          # degenerate
+    fv = torch.as_tensor(faces)
+    kw = dict(S=64, cap=64, sigma_val=3e-3, dist_eps=1e-4)
+    bins = compute_raster_bins(fv, 64, raster_kernel.TILE_SIZE, 3e-3, 1e-4,
+                               64, raster_kernel.MAX_COVER, 16 * 40 + 32)
+    slots, box, _, _ = pair_counts(fv, bins, **kw)
+    steps = block_steps(fv, bins, **kw)
+    assert box <= 32 * steps <= slots
+    assert block_steps(fv[:, :5].contiguous(), compute_raster_bins(
+        fv[:, :5].contiguous(), 64, raster_kernel.TILE_SIZE, 3e-3, 1e-4, 64,
+        raster_kernel.MAX_COVER, 16 * 5 + 32), **kw) == 0

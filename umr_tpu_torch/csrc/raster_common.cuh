@@ -256,15 +256,4 @@ __device__ inline void stage_faces(const float* __restrict__ fv,
   }
 }
 
-// Pixel centre (xp, yp) of a thread's q-th pixel in tile t; row/col out.
-__device__ __forceinline__ void pixel_of(int t, int q, const Params& p,
-                                         int& row, int& col, float& xp,
-                                         float& yp) {
-  const int lane = threadIdx.x + q * NTH;
-  col = (t % p.TX) * TS + lane % TS;
-  row = (t / p.TX) * TS + lane / TS;
-  xp = (2.0f * (float)col + 1.0f - (float)p.S) / (float)p.S;
-  yp = (2.0f * (float)(p.S - 1 - row) + 1.0f - (float)p.S) / (float)p.S;
-}
-
 }  // namespace umr

@@ -1,6 +1,7 @@
 """Times the rasterizer kernels built from one or more source trees at
 the training steps' shapes, in turns on one card, beside each shape's
-bound; prints each build's registers and spills (ptxas).
+bound; prints each build's registers and spills (ptxas), and how far
+each build's forward outputs lie from the first build's.
 
   python -m umr_tpu_torch.experiments.raster_bench \\
       --lib parent=/path/to/parent/umr_tpu_torch/csrc \\
@@ -20,8 +21,9 @@ hypotheses (the 128-image fold with rgb_geom_detach, the 16-image hard
 pass, the 48-image merged part + GAN pass with tex_grads=False), stage 1
 at batch 64 (the fused render with p2f and rgb_geom_detach, the hard
 pass, the mask-only GAN render), 256^2 with 512^2 anti-aliased renders,
-F=1280, T2=36. chip_smoke.py records the same renders from its trained
-models. CUDA events around `--reps` launches after one warm-up; TF32 off.
+F=1280, T2=36; and a test_iou batch's render (32 images, T2=1).
+chip_smoke.py records the same renders from its trained models. CUDA
+events around `--reps` launches after one warm-up; TF32 off.
 """
 
 from __future__ import annotations
@@ -42,7 +44,17 @@ from ..data import synthetic_batch
 from ..mesh import build_template
 from ..ops import raster_kernel
 from ..ops.raster_bins import compute_raster_bins
-from .raster_bound import pair_counts, raster_bound
+from ..renderer import SoftRenderer
+from .raster_bound import block_steps, pair_counts, raster_bound
+
+def _short(raw):
+    """A mangled kernel name shortened to `raster_bwd_kernel<1,0>`
+    (template bools)."""
+    k = re.search(r"(raster_[a-z]+_kernel)(?:I((?:Lb[01]E)+)E)?", raw)
+    return raw if k is None else k.group(1) + (
+        "<" + ",".join(re.findall(r"Lb([01])E", k.group(2))) + ">"
+        if k.group(2) else "")
+
 
 def ptxas_usage(log):
     """{kernel: (registers, spill store bytes, spill load bytes)} from
@@ -53,12 +65,7 @@ def ptxas_usage(log):
         m = re.search(r"(?:Compiling entry function|Function properties "
                       r"for) '?(\w+)", line)
         if m:
-            raw = m.group(1)
-            k = re.search(r"(raster_[a-z]+_kernel)(?:I((?:Lb[01]E)+)E)?",
-                          raw)
-            name = raw if k is None else k.group(1) + (
-                "<" + ",".join(re.findall(r"Lb([01])E", k.group(2))) + ">"
-                if k.group(2) else "")
+            name = _short(m.group(1))
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
         if m:
@@ -70,11 +77,32 @@ def ptxas_usage(log):
     return out
 
 
+def shared_atomics(sass):
+    """{kernel: {opcode: count}} of the shared-memory atomics (ATOMS.*)
+    in `cuobjdump -sass` output; a shared float atomicAdd shows as
+    ATOMS.CAST.SPIN, a compare-and-swap loop."""
+    out, name = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = _short(m.group(1))
+            out[name] = {}
+            continue
+        m = re.search(r"\b(ATOMS(?:\.[A-Z0-9]+)*)", line)
+        if m and name:
+            out[name][m.group(1)] = out[name].get(m.group(1), 0) + 1
+    return out
+
+
 def build(name, csrc, workdir):
-    """(library, ptxas usage) of the kernels in csrc."""
+    """(library, ptxas usage, shared atomics) of the kernels in csrc."""
     lib, log = raster_kernel.build_library(
         csrc, os.path.join(workdir, "build_" + re.sub(r"\W", "_", name)))
-    return lib, ptxas_usage(log)
+    cuobjdump = os.path.join(os.path.dirname(raster_kernel._nvcc()),
+                             "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", lib._name],
+                          capture_output=True, text=True, check=True).stdout
+    return lib, ptxas_usage(log), shared_atomics(sass)
 
 
 def synthetic_semantic(template, seed=0):
@@ -166,10 +194,15 @@ S2_RENDERS = ("s2_fold", "s2_hard", "s2_merged")
 S1_RENDERS = ("s1_fused", "s1_hard", "s1_gan")
 
 
-def step_shapes(device, seed=0, image_size=256, s2_batch=16, s1_batch=64):
+def step_shapes(device, seed=0, image_size=256, s2_batch=16, s1_batch=64,
+                iou_batch=32):
     """{label: recorded render} of the first step of train_s2.run and of
-    train_s1.run at their seeded initialisation, on synthetic batches."""
-    from . import train_s1, train_s2
+    train_s1.run at their seeded initialisation, on synthetic batches;
+    `s1_fused_no_p2f` is the fused render without p2f (forward only);
+    `test_iou` the render of a test_iou batch (MeshNet-s2 at its seeded
+    initialisation, eval mode; forward only)."""
+    from . import test_iou, train_s1, train_s2
+    from .profile_slice import random_model
 
     rng = np.random.RandomState(seed)
     template = build_template(3, 1, 6)
@@ -187,7 +220,39 @@ def step_shapes(device, seed=0, image_size=256, s2_batch=16, s1_batch=64):
     with step_renders(S1_RENDERS) as s1:
         train_s1.run(cfg, [synthetic_batch(rng, s1_batch, image_size)],
                      device=device)
-    return {**s2, **s1}
+    # the fused render by the p2f-free instance, for the p2f premium
+    fused = s1["s1_fused"]
+    s1["s1_fused_no_p2f"] = dict(fused, bwd=None,
+                                 kw=dict(fused["kw"], need_p2f=False))
+    icfg = Config(batch_size=iou_batch, image_size=image_size,
+                  subdivide=3).sync_image_size()
+    model = random_model(icfg, template, seed, device)
+    batch = synthetic_batch(np.random.RandomState(seed), iou_batch,
+                            image_size)
+    x = torch.as_tensor(test_iou.prepare_batch(batch)[0], device=device)
+    with step_renders(("test_iou",)) as iou, torch.no_grad():
+        test_iou.predict_masks(
+            model, SoftRenderer(image_size=image_size, render_type="softmax"),
+            torch.as_tensor(template.faces, device=device), x,
+            generator=torch.Generator(device).manual_seed(seed))
+    iou["test_iou"]["bwd"] = None    # inference: forward only
+    return {**s2, **s1, **iou}
+
+
+def compare_outputs(ref, out, hard):
+    """How far the forward output `out` of one render (a RasterOut) lies
+    from `ref`, the same render by another build: max |diff| of rgba, of
+    aggr and of p2f; for the hard body, the share of the pixels `ref`
+    covers whose face id and depth are equal (else None)."""
+    diff = {k: (getattr(out, k) - getattr(ref, k)).abs().max().item()
+            for k in ("rgba", "aggr", "p2f")}
+    diff["hard_equal"] = None
+    if hard:
+        cov = ref.aggr[:, 1] >= 0
+        same = (out.aggr == ref.aggr).all(1)
+        diff["hard_equal"] = (same[cov].float().mean().item()
+                              if cov.any() else 1.0)
+    return diff
 
 
 def time_ms(fn, reps):
@@ -224,29 +289,44 @@ def main(argv=None):
                          text=True).stdout.strip().splitlines()[0]
     print(f"card: {smi}", flush=True)
 
-    libs, usage = {}, {}
+    libs, usage, atomics = {}, {}, {}
     with tempfile.TemporaryDirectory() as work:
         for spec in args.lib:
             name, csrc = spec.split("=", 1)
-            libs[name], usage[name] = build(name, csrc, work)
+            libs[name], usage[name], atomics[name] = build(name, csrc, work)
             print(f"{name}: built from {csrc}; ptxas " + ", ".join(
                 f"{k} {r} registers, spill {s}/{l} bytes"
-                for k, (r, s, l) in sorted(usage[name].items())), flush=True)
+                for k, (r, s, l) in sorted(usage[name].items()))
+                + "; shared atomics (SASS) " + ", ".join(
+                    f"{k} {v or 'none'}"
+                    for k, v in sorted(atomics[name].items())), flush=True)
         order = (args.order.split(",") if args.order else list(libs))
 
         data = step_shapes(dev)
         labels = args.shapes.split(",") if args.shapes else list(data)
-        result = {"card": smi, "order": order, "ptxas": usage, "shapes": {}}
+        result = {"card": smi, "order": order, "ptxas": usage,
+                  "shared_atomics": atomics, "shapes": {}}
         saved = raster_kernel._lib
         for label in labels:
             r = data[label]
             counts, fwd_bound, bwd_bound = render_bounds(r)
+            kw = r["kw"]
+            steps = block_steps(r["fv"], r["bins"], kw["image_size"],
+                                kw["mf_cap"], kw["sigma_val"],
+                                kw["dist_eps"])
             rec = {"images": r["fv"].shape[0], "pair_counts": counts,
+                   "block_steps": steps,
                    "fwd_bound": fwd_bound, "bwd_bound": bwd_bound,
-                   "fwd_ms": [], "bwd_ms": []}
+                   "fwd_ms": [], "bwd_ms": [], "vs_first": {}}
+            hard = kw["aggr_func_rgb"] == "hard"
+            first = None
             for name in order:
                 raster_kernel._lib = libs[name]
                 o = render_fwd(r)
+                if first is None:
+                    first = o
+                elif name not in rec["vs_first"]:
+                    rec["vs_first"][name] = compare_outputs(first, o, hard)
                 rec["fwd_ms"].append(time_ms(lambda: render_fwd(r),
                                              args.reps))
                 if r["bwd"] is not None:
@@ -258,7 +338,9 @@ def main(argv=None):
             raster_kernel._lib = saved
             result["shapes"][label] = rec
             print(f"{label} ({rec['images']} images; slots, pairs in bbox, "
-                  f"past the threshold, in depth: {counts}): forward ms "
+                  f"past the threshold, in depth: {counts}; the forward's "
+                  f"block steps {steps}, lanes in a bbox "
+                  f"{counts[1] / max(32 * steps, 1):.3f}): forward ms "
                   + ", ".join(f"{n} {t:.3f}" for n, t in
                               zip(order, rec["fwd_ms"]))
                   + f" (bound {fwd_bound[0]:.3f} ms, {fwd_bound[1]})"
@@ -268,6 +350,14 @@ def main(argv=None):
                          zip(order, rec["bwd_ms"]))
                      + f" (bound {bwd_bound[0]:.3f} ms, {bwd_bound[1]})")
                   + f" [{smi}]", flush=True)
+            for name, d in rec["vs_first"].items():
+                print(f"  {name} vs {order[0]}: max |diff| rgba "
+                      f"{d['rgba']:.3e}, aggr {d['aggr']:.3e}, p2f "
+                      f"{d['p2f']:.3e}" + ("" if d["hard_equal"] is None else
+                                          f"; hard face id + depth equal on "
+                                          f"{d['hard_equal']:.6f} of covered "
+                                          "pixels"), flush=True)
+            del first, o
     print(json.dumps(result))
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),

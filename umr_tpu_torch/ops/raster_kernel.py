@@ -159,6 +159,56 @@ def pixel_rect(box, S, tile):
                        -1).long()
 
 
+FWD_THREADS, FWD_SLOTS = 256, 4   # the forward's threads, pixels a thread
+
+
+def fwd_slot_pixels():
+    """The forward kernel's slot layout (csrc/raster_fwd.cu::slot_col,
+    slot_row), in plain torch: int64 [FWD_SLOTS, FWD_THREADS, 2], the
+    tile-local (row, col) of each thread's q-th pixel. Slot q of warp w
+    is the 8x4 pixel block (w % 4, 2 q + w / 4), lane l its pixel
+    (l % 8, l / 8). Used by the tests, to show the slots cover the tile
+    once, in 8x4 blocks, and that fwd_slot_of inverts them."""
+    tid = torch.arange(FWD_THREADS)
+    q = torch.arange(FWD_SLOTS)[:, None]
+    col = ((tid >> 5) & 3) * 8 + (tid & 7)
+    row = (2 * q + (tid >> 7)) * 4 + ((tid >> 3) & 3)
+    return torch.stack(torch.broadcast_tensors(row, col[None]), -1)
+
+
+def fwd_slot_of(row, col):
+    """The slot q * FWD_THREADS + tid holding tile-local pixel (row, col)
+    (csrc/raster_fwd.cu::slot_of, which the write-out reads by), on int64
+    tensors."""
+    by, bx = row >> 2, col >> 3
+    return ((by >> 1) * FWD_THREADS + ((by & 1) * 4 + bx) * 32
+            + (row & 3) * 8 + (col & 7))
+
+
+def fwd_block_hits(box, S, tile):
+    """The forward kernel's block test (csrc/raster_fwd.cu, the slots'
+    face masks), in plain torch: box [..., 4] float32 margin-expanded
+    bboxes (maxx + m, minx - m, maxy + m, miny - m, as face_setup writes
+    them) and the tile index (an int, or a tensor that broadcasts with
+    box[..., 0]) -> bool [..., 8, 4], whether each bbox reaches each 8x4
+    pixel block (block row, block column) of the tile: its x range meets
+    the block's first and last columns' centres and its y range the
+    rows', in the kernel's float32 compares. Used by the tests, to show a
+    block the test leaves out holds no pixel the bbox test passes, and by
+    experiments/raster_bound.py to count the blocks the walk visits."""
+    TX = S // TILE_SIZE
+    tile = torch.as_tensor(tile, device=box.device)[..., None]
+    ar = torch.arange(TILE_SIZE, dtype=torch.float32, device=box.device)
+    cx = (2.0 * ((tile % TX) * TILE_SIZE + ar) + 1.0 - S) / S   # [..., 32]
+    cy = (2.0 * (S - 1 - ((tile // TX) * TILE_SIZE + ar)) + 1.0 - S) / S
+    b = box[..., None, :]
+    in_x = ((cx[..., 0::8] <= b[..., 0])
+            & (cx[..., 7::8] >= b[..., 1]))                      # [..., 4]
+    in_y = ((cy[..., 3::4] <= b[..., 2])
+            & (cy[..., 0::4] >= b[..., 3]))                      # [..., 8]
+    return in_y[..., :, None] & in_x[..., None, :]
+
+
 def _check(t, name, shape, dtype, device):
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
