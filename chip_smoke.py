@@ -6,10 +6,14 @@ csrc/, holds each against its plain version at the main paths' shapes
 drives the inference slice (test_iou.run at
 full s2 width, batch 32; demo.render_panels), the stage-2 training slice
 (train_s2.run at full s2 width, batch 16, 6 steps; one step with
-cycle_soft_p2f) and the stage-1 training slice (train_s1.run at full s1
-width, batch 64, 2 epochs of 3 batches with two template updates), checks
-that each path went through the kernels, and times kernels, plain
-versions and the training steps.
+cycle_soft_p2f), the stage-1 training slice (train_s1.run at full s1
+width, batch 64, 2 epochs of 3 batches with two template updates) and the
+stage handoff through files (avg_uv.run on stage 1's checkpoint,
+train_s2.run from that template on disk with an auto-resume, test_iou.run
+and test_kp.run on stage 2's checkpoint), checks that each path went
+through the kernels, and times kernels, plain versions, the training
+steps and the handoff's entry points. Every run writes into a fresh
+temporary directory.
 
   python3 chip_smoke.py
 
@@ -59,6 +63,7 @@ S1_BATCHES = 3
 S1_EPOCHS = 2
 P2F_SLICE = 8            # images of the s1 renders the plain p2f and the
                          # plain backward take
+KP_PAIRS = 32            # test_kp's pairs in phase 13 (groups of 16)
 
 RGBA_ATOL = 1e-3      # kernel vs plain: reductions run in another order
 AGGR_RTOL = 1e-4      # softmax (sum, max)
@@ -280,6 +285,292 @@ def p2f_check(name, out, ref):
     print(msg, flush=True)
     assert err <= P2F_ATOL and nz > 0, msg
     return err
+
+
+def timed_avg_uv(avg_uv, ucfg, loader, dev):
+    """avg_uv.run with pass 1 split per batch, each part on the wall clock
+    with the card synchronised at its ends: the host's batch preparation
+    (prepare_batch), the copies to the card (prep's end to the score's
+    start), the scoring on the card (score_batch: the model, the render,
+    LPIPS, the UV transfer) and the read-back of scores and fp16 maps
+    (the score's end to the next batch's prep; the last batch's to the
+    pass's end, so it also holds the concatenation of the pass's maps).
+    Returns (run seconds, pass 1 seconds, {part: [seconds per batch]})."""
+    prep, score, search = (avg_uv.prepare_batch, avg_uv.score_batch,
+                           avg_uv.exemplar_search)
+    split = {k: [] for k in ("prep", "copy", "device", "readback")}
+    marks = {}
+
+    def close_batch(t):
+        if "score_end" in marks:
+            split["readback"].append(t - marks.pop("score_end"))
+
+    def timed_prep(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        close_batch(t0)
+        out = prep(*a, **k)
+        marks["prep_end"] = time.perf_counter()
+        split["prep"].append(marks["prep_end"] - t0)
+        return out
+
+    def timed_score(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        split["copy"].append(t0 - marks.pop("prep_end"))
+        out = score(*a, **k)
+        torch.cuda.synchronize()
+        marks["score_end"] = time.perf_counter()
+        split["device"].append(marks["score_end"] - t0)
+        return out
+
+    def timed_search(*a):
+        t0 = time.perf_counter()
+        out = search(*a)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        close_batch(t1)
+        marks["pass1"] = t1 - t0
+        return out
+
+    avg_uv.prepare_batch, avg_uv.score_batch = timed_prep, timed_score
+    avg_uv.exemplar_search = timed_search
+    t0 = time.perf_counter()
+    try:
+        avg_uv.run(ucfg, loader, device=dev)
+    finally:
+        avg_uv.prepare_batch, avg_uv.score_batch = prep, score
+        avg_uv.exemplar_search = search
+    return time.perf_counter() - t0, marks["pass1"], split
+
+
+def timed_kp_groups(test_kp, kcfg, pairs, dev, split=False):
+    """test_kp.run with each group's transfer_group timed on the wall
+    clock, the card synchronised at its ends (ms per group, "total").
+    With split=True also the host's normalisation of the group's images,
+    the model's forward, the render and the keypoint maps (map_kp_flow /
+    map_kp_cam, summed over the group's pairs), each synchronised at its
+    ends, and the rest of the group (the input's copy to the card, the
+    stacks, the read-back)."""
+    group_fn, build, renderer_cls, norm = (
+        test_kp.transfer_group, test_kp.build_eval_model,
+        test_kp.SoftRenderer, test_kp.normalize_images)
+    maps = {"flow": test_kp.map_kp_flow, "cam": test_kp.map_kp_cam}
+    parts = (("total", "normalise", "model", "render", "maps") if split
+             else ("total",))
+    out = {k: [] for k in parts}
+    acc = dict.fromkeys(parts, 0.0)
+
+    def timed(name, fn):
+        def run(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = fn(*a, **k)
+            torch.cuda.synchronize()
+            acc[name] += 1e3 * (time.perf_counter() - t0)
+            return res
+        return run
+
+    def timed_group(*a, **k):
+        for name in parts:
+            acc[name] = 0.0
+        res = timed("total", group_fn)(*a, **k)
+        for name in parts:
+            out[name].append(acc[name])
+        return res
+
+    def timed_build(*a, **k):
+        model = build(*a, **k)
+        model.forward = timed("model", model.forward)
+        return model
+
+    class TimedRenderer(renderer_cls):
+        def render(self, *a, **k):
+            return timed("render", super().render)(*a, **k)
+
+    test_kp.transfer_group = timed_group
+    if split:
+        test_kp.build_eval_model = timed_build
+        test_kp.SoftRenderer = TimedRenderer
+        test_kp.normalize_images = timed("normalise", norm)
+        test_kp.map_kp_flow = timed("maps", maps["flow"])
+        test_kp.map_kp_cam = timed("maps", maps["cam"])
+    try:
+        test_kp.run(kcfg, pairs, device=dev)
+    finally:
+        test_kp.transfer_group = group_fn
+        test_kp.build_eval_model, test_kp.SoftRenderer = build, renderer_cls
+        test_kp.normalize_images = norm
+        test_kp.map_kp_flow, test_kp.map_kp_cam = maps["flow"], maps["cam"]
+    if split:
+        out["rest"] = [out["total"][i] - sum(out[k][i] for k in parts[1:])
+                       for i in range(len(out["total"]))]
+    return out
+
+
+def handoff(dev, smi, template, s1_pth, s1loader, tcfg, tloader, cfg,
+            loader):
+    """Phase 13: avg_uv.run on stage 1's checkpoint over stage 1's loader,
+    train_s2.run from that template on disk at tcfg (refused without
+    force_template: the template is dead; 3 steps, then to 6 steps,
+    resumed), test_iou.run over `loader` and test_kp.run in both modes on
+    stage 2's checkpoint, each path's launches asserted. Returns the
+    readings."""
+    from umr_tpu_torch.config import normalize_images
+    from umr_tpu_torch.data import synthetic_batch
+    from umr_tpu_torch.experiments import avg_uv, test_iou, test_kp, train_s2
+    from umr_tpu_torch.ops import raster_kernel
+
+    t_phase = time.perf_counter()
+    stemp = tempfile.mkdtemp()
+    ucfg = tcfg.replace(model_path=s1_pth, out_dir=stemp)
+    raster_kernel.LAUNCHES = raster_kernel.BWD_LAUNCHES = 0
+    uv_s, pass1_s, split = timed_avg_uv(avg_uv, ucfg, s1loader, dev)
+    uv_launches = (raster_kernel.LAUNCHES, raster_kernel.BWD_LAUNCHES)
+    counts = {n: len(np.load(os.path.join(stemp, f"{n}_vertices.npy")))
+              for n in avg_uv.PART_NAMES}
+    min_cnt = math.ceil(ucfg.part_min_vert_frac * template.num_verts)
+    # after the first batch (warm-up); the last read-back holds the
+    # pass's concatenation
+    steady = {k: 1e3 * float(np.median(v[:-1] if k == "readback" else v[1:]))
+              for k, v in split.items()}
+    print(f"avg_uv.run: {len(s1loader)} batches of {S1_BATCH} in "
+          f"{uv_s:.2f} s; pass 1 {pass1_s:.3f} s, "
+          f"{pass1_s / len(s1loader):.3f} s/batch; per batch (ms, the first "
+          f"included): "
+          + "; ".join(f"{k} " + ", ".join(f"{1e3 * t:.1f}" for t in v)
+                      for k, v in split.items())
+          + "; median after the first (read-back: but the last): "
+          + ", ".join(f"{k} {t:.1f}" for k, t in steady.items())
+          + f"; part vertex counts {counts} (the bar: {min_cnt}); "
+          f"raster_fwd launches {uv_launches[0]}, raster_bwd "
+          f"{uv_launches[1]} (expected {len(s1loader)} and 0) [{smi}]",
+          flush=True)
+    assert uv_launches == (len(s1loader), 0), uv_launches
+    for f in ("semantic_prob.npy", "semantic_seg.png", "mean_v.pth",
+              "mean_template.obj", "vertex_label.obj"):
+        assert os.path.exists(os.path.join(stemp, f)), f
+    # why the template is dead: the UV flow's spread over one batch, in
+    # eval mode (avg_uv's: the BatchNorms' running statistics of six
+    # steps) and in train mode (the batch's statistics)
+    model = avg_uv.load_s1_model(ucfg, template, dev)
+    x = torch.as_tensor(normalize_images(
+        s1loader[0]["img"].astype(np.float32)), device=dev)
+    flow_std = {}
+    with torch.no_grad():
+        for mode in ("eval", "train"):
+            model.train(mode == "train")
+            flow = model(x, generator=torch.Generator(dev).manual_seed(0))[
+                "uvimage_pred"]
+            flow_std[mode] = float(flow.std(dim=(1, 2)).mean())
+    del model
+    print(f"the s1 model's UV flow, std over a batch's UV images (grid "
+          f"units, mean over images and axes): eval {flow_std['eval']:.3g},"
+          f" train {flow_std['train']:.3g}", flush=True)
+    # a dead template, refused
+    assert min(counts.values()) < min_cnt, counts
+    try:
+        train_s2.run(tcfg.replace(stemp_path=stemp,
+                                  checkpoint_dir=tempfile.mkdtemp(),
+                                  name="s2", num_iter=3), tloader, device=dev)
+    except ValueError as e:
+        assert "liveliness bar" in str(e), e
+        print("train_s2.run refuses the template without "
+              "--force_template: " + str(e).split(":")[0])
+    else:
+        raise AssertionError("train_s2.run took a starved template")
+
+    s2cfg = tcfg.replace(stemp_path=stemp, checkpoint_dir=tempfile.mkdtemp(),
+                         name="s2", num_iter=3)
+    s2_dir = os.path.join(s2cfg.checkpoint_dir, s2cfg.name)
+    raster_kernel.LAUNCHES = raster_kernel.BWD_LAUNCHES = 0
+    t0 = time.perf_counter()
+    first_run = train_s2.run(s2cfg.replace(force_template=True), tloader,
+                             device=dev)
+    torch.cuda.synchronize()
+    s2a_s = time.perf_counter() - t0
+    s2a = (raster_kernel.LAUNCHES, raster_kernel.BWD_LAUNCHES)
+    assert first_run.state.step == 3 and len(first_run.history) == 3
+    assert s2a == (9, 6), s2a
+    del first_run
+    raster_kernel.LAUNCHES = raster_kernel.BWD_LAUNCHES = 0
+    t0 = time.perf_counter()
+    resumed = train_s2.run(s2cfg.replace(force_template=True, num_iter=6),
+                           tloader, device=dev)
+    torch.cuda.synchronize()
+    s2b_s = time.perf_counter() - t0
+    s2b = (raster_kernel.LAUNCHES, raster_kernel.BWD_LAUNCHES)
+    s2_log = open(os.path.join(s2_dir, "loss_log.txt")).read()
+    budget = json.load(open(os.path.join(s2_dir, "stage_budget.json")))
+    print(f"train_s2.run from {stemp}: 3 steps in {s2a_s:.2f} s, launches "
+          f"{s2a}; again at num_iter=6: resumed at step 3, "
+          f"{len(resumed.history)} steps in {s2b_s:.2f} s, launches {s2b} "
+          f"(expected 3 and 2 per step); wrote {sorted(os.listdir(s2_dir))}; "
+          f"stage budget of the resumed run {budget} [{smi}]", flush=True)
+    assert resumed.state.step == 6 and len(resumed.history) == 3
+    assert s2b == (9, 6), s2b
+    for sc in resumed.history:
+        assert all(math.isfinite(v) for v in sc.values()), sc
+    for f in ("pred_net_latest.pth", "pred_state.pt", "opts.log"):
+        assert os.path.exists(os.path.join(s2_dir, f)), f
+    assert s2_log.count("corr_loss: ") == 6, s2_log
+    assert "dispatch_s_per_step" in budget and "drain_s_per_step" in budget
+    del resumed
+    torch.cuda.empty_cache()
+
+    s2_pth = os.path.join(s2_dir, "pred_net_latest.pth")
+    raster_kernel.LAUNCHES = 0
+    t0 = time.perf_counter()
+    s2_iou = test_iou.run(cfg.replace(model_path=s2_pth), loader, device=dev)
+    torch.cuda.synchronize()
+    s2_iou_s = time.perf_counter() - t0
+    iou_launches = raster_kernel.LAUNCHES
+    print(f"test_iou.run on stage 2's checkpoint: IoU {s2_iou:.4f} over "
+          f"{len(loader)} batches of {cfg.batch_size} in {s2_iou_s:.2f} s; "
+          f"raster_fwd launches {iou_launches} (expected {len(loader)})")
+    assert math.isfinite(s2_iou) and iou_launches == len(loader)
+
+    pair_rng = np.random.RandomState(5)
+    pairs = tuple([synthetic_batch(pair_rng, 1, cfg.image_size)
+                   for _ in range(KP_PAIRS)] for _ in range(2))
+    kcfg = cfg.replace(model_path=s2_pth, number_pairs=KP_PAIRS)
+    groups = -(-KP_PAIRS // 16)
+    kp = {}
+    for mode in ("flow", "cam"):
+        raster_kernel.LAUNCHES = raster_kernel.BWD_LAUNCHES = 0
+        t0 = time.perf_counter()
+        pck = test_kp.run(kcfg.replace(mode=mode), pairs, device=dev)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        launches = (raster_kernel.LAUNCHES, raster_kernel.BWD_LAUNCHES)
+        want = (groups if mode == "cam" else 0, 0)
+        per_group = timed_kp_groups(test_kp, kcfg.replace(mode=mode), pairs,
+                                    dev)
+        kp_split = timed_kp_groups(test_kp, kcfg.replace(mode=mode), pairs,
+                                   dev, split=True)
+        kp[mode] = dict(pck=pck, launches=launches[0], run_s=first_s,
+                        group_ms=per_group, split_ms=kp_split)
+        print(f"test_kp.run {mode}: PCK@0.1 {pck[0]:.4f}, PCK@0.15 "
+              f"{pck[1]:.4f} over {KP_PAIRS} pairs ({groups} groups of 16) "
+              f"in {first_s:.3f} s with the model load; a group of 16 pairs "
+              f"(transfer_group, synchronised at its ends, after that run): "
+              + ", ".join(f"{t:.1f}" for t in per_group["total"])
+              + " ms; in a further run with each part synchronised (ms per "
+              f"group): " + "; ".join(
+                  f"{k} " + ", ".join(f"{t:.1f}" for t in v)
+                  for k, v in kp_split.items())
+              + f"; launches {launches} (expected {want}) [{smi}]",
+              flush=True)
+        assert launches == want, launches
+        assert 0.0 <= pck[0] <= pck[1] <= 1.0
+    handoff_s = time.perf_counter() - t_phase
+    print(f"phase 13: {handoff_s:.1f} s [{smi}]", flush=True)
+    return dict(uv_launches=uv_launches[0], uv_s=uv_s,
+                pass1_s_per_batch=pass1_s / len(s1loader),
+                pass1_split_s=split, pass1_steady_ms=steady,
+                part_counts=counts, flow_std=flow_std,
+                resume_launches=list(s2b), iou_launches=iou_launches, kp=kp,
+                phase_s=handoff_s)
 
 
 def main():
@@ -645,7 +936,8 @@ def main():
 
     tcfg = Config(batch_size=TRAIN_BATCH, image_size=IMAGE_SIZE,
                   subdivide=SUBDIVIDE, tex_size=6, num_hypo_cams=8,
-                  num_iter=TRAIN_STEPS, print_freq=1).sync_image_size()
+                  num_iter=TRAIN_STEPS, print_freq=1,
+                  checkpoint_dir=tempfile.mkdtemp()).sync_image_size()
     seg, pvi = synthetic_semantic(template)       # bench.py's
     tloader = [synthetic_batch(data_rng, TRAIN_BATCH, IMAGE_SIZE)
                for _ in range(TRAIN_STEPS)]
@@ -823,7 +1115,8 @@ def main():
         "--batch_size", str(S1_BATCH), "--image_size", str(IMAGE_SIZE),
         "--subdivide", str(SUBDIVIDE), "--tex_size", "6",
         "--num_epochs", str(S1_EPOCHS), "--update_template_freq", "1",
-        "--print_freq", "1"])
+        "--print_freq", "1", "--checkpoint_dir", tempfile.mkdtemp(),
+        "--name", "s1"])
     s1loader = [synthetic_batch(data_rng, S1_BATCH, IMAGE_SIZE)
                 for _ in range(S1_BATCHES)]
     n1 = S1_BATCHES * S1_EPOCHS
@@ -854,6 +1147,11 @@ def main():
              - torch.as_tensor(template.mean_v_init)).abs().max().item()
     print(f"template mean_v moved by up to {moved:.3e}")
     assert moved > 0
+    s1_dir = os.path.join(s1cfg.checkpoint_dir, s1cfg.name)
+    s1_pth = os.path.join(s1_dir, "pred_net_latest.pth")
+    s1_log = open(os.path.join(s1_dir, "loss_log.txt")).read()
+    print(f"stage 1 wrote {sorted(os.listdir(s1_dir))}")
+    assert os.path.exists(s1_pth) and "uv_flow_area: " in s1_log
     first, last = s1_trainer.history[0], s1_trainer.history[-1]
     print("s1 step 1 scalars: " + ", ".join(f"{k} {v:.4f}"
                                              for k, v in first.items()))
@@ -993,7 +1291,8 @@ def main():
         SoftRenderer(image_size=IMAGE_SIZE).ambient_light_only(), tex_size=6,
         device=dev)
     _, _, _, init_c, step_c = build_s2_step(
-        tcfg.replace(cycle_soft_p2f=True), template, part_loss, pvi, dev)
+        tcfg.replace(cycle_soft_p2f=True, checkpoint_dir=tempfile.mkdtemp()),
+        template, part_loss, pvi, dev)
     state_c = init_c(tcfg.seed)
     raster_kernel.LAUNCHES = raster_kernel.BWD_LAUNCHES = 0
     raster_kernel.P2F_LAUNCHES = 0
@@ -1011,6 +1310,12 @@ def main():
     assert cyc_launches == (4, 2, 1), cyc_launches
     assert all(math.isfinite(v) for v in sc.values()), sc
     del state_c, step_c
+
+    phase("13. the stage handoff through files: avg_uv.run on stage 1's "
+          "checkpoint, train_s2.run from its template on disk (batch 16, "
+          "K=8) and resumed, test_iou.run and test_kp.run on stage 2's")
+    handoff_rec = handoff(dev, smi, template, s1_pth, s1loader, tcfg,
+                          tloader, cfg, loader)
 
     record = {"kernels": [{
         "name": "raster_fwd", "route": "cuda", "source": KERNEL_SRC,
@@ -1042,6 +1347,7 @@ def main():
         "s1_traced_ms": s1_trace["traced_ms"],
         "s1_idle_share": s1_trace["idle"], "s1_copy_ms": s1_trace["copy_ms"],
         "cycle_soft_p2f_launches": list(cyc_launches),
+        "handoff": handoff_rec,
         "s2_hard_ms": shapes["hard"]["fwd_ms"],
         "s2_hard_bound_ms": shapes["hard"]["fwd_bound"][0],
         "s1_hard_ms": s1_shapes["s1 hard"]["fwd_ms"],

@@ -395,3 +395,43 @@ def test_forward_kernel_work_split(cuda, kind, mode):
         assert ref.p2f.abs().sum() > 0
     else:
         assert not out.p2f.any()
+
+
+def test_trainer_copies_batches_pinned_and_drains_one_step_late(cuda,
+                                                                 tmp_path):
+    """The trainer on the card: each batch reaches the step as CUDA
+    tensors, equal to the host batch, and each step's scalars (queued to
+    pinned memory behind the step) come back in order, one step late."""
+    from umr_tpu_torch.config import Config
+    from umr_tpu_torch.training.steps import TrainState
+    from umr_tpu_torch.training.trainer import Trainer, prepare_batch
+
+    model = torch.nn.Linear(2, 2).to(cuda)
+    disc = torch.nn.Linear(1, 1).to(cuda)
+    state = TrainState(step=0, updates=0, model=model, disc=disc, lpips=None,
+                       optimizer=torch.optim.SGD(model.parameters(), lr=0.1),
+                       generator=torch.Generator(cuda))
+    rng = np.random.RandomState(0)
+    loader = [{"img": rng.uniform(0, 1, (2, 8, 8, 3)).astype(np.float32),
+               "mask": np.ones((2, 8, 8), np.float32)} for _ in range(3)]
+    seen = []
+
+    def step_fn(st, db):
+        seen.append({k: v.cpu().numpy() for k, v in db.items()})
+        assert all(v.is_cuda for v in db.values())
+        st.step += 1
+        return st, {"total_loss": db["img"].sum() * 0 + st.step}
+
+    cfg = Config(checkpoint_dir=str(tmp_path), num_iter=3, num_epochs=1,
+                 print_scalars=False, use_scops=False)
+    t = Trainer(cfg, step_fn, state, loader)
+    assert t.device.type == "cuda"
+    t.train()
+    assert [sc["total_loss"] for sc in t.history] == [1.0, 2.0, 3.0]
+    for got, batch in zip(seen, loader):
+        want = prepare_batch(batch, use_scops=False)
+        np.testing.assert_array_equal(got["img"], want["img"])
+        np.testing.assert_array_equal(got["input_img"], want["input_img"])
+    # the GAN's reals lag one batch
+    np.testing.assert_array_equal(seen[1]["real_imgs"],
+                                  prepare_batch(loader[0])["real_imgs"])

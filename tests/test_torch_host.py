@@ -4,10 +4,13 @@ the .obj export and the demo's image preprocessing. The CLI parses the
 JAX package's flag names.
 
 Tolerances: exactly equal, except the demo's resize (torch bilinear
-against cv2's, both with half-pixel centres): atol 1e-6."""
+against cv2's, both with half-pixel centres): atol 1e-6, and the identity
+grid (torch's and XLA's linspace round a few points one ulp apart):
+atol 2e-7 (reading 1.19e-7)."""
 
 import dataclasses
 
+import imageio.v2 as imageio
 import numpy as np
 import pytest
 
@@ -17,6 +20,7 @@ from umr_tpu.mesh import build_template as jax_template
 from umr_tpu.utils import image as jimage
 from umr_tpu.utils.obj_io import save_obj as jax_save_obj
 from umr_tpu_torch import config as tconfig
+from umr_tpu_torch import image
 from umr_tpu_torch.cli import parse_config
 from umr_tpu_torch.data import synthetic_batch
 from umr_tpu_torch.experiments import demo
@@ -98,9 +102,49 @@ def test_save_obj_matches_jax(rng, tmp_path):
     tex = rng.uniform(0, 1, (5, 9, 3)).astype(np.float32)
     save_obj(str(tmp_path / "t" / "m.obj"), verts, faces, tex)
     jax_save_obj(str(tmp_path / "j" / "m.obj"), verts, faces, tex)
-    for name in ("m.obj", "m.mtl", "m.png"):
+    for name in ("m.obj", "m.mtl"):
         assert ((tmp_path / "t" / name).read_bytes()
                 == (tmp_path / "j" / name).read_bytes()), name
+    # the atlas: the port writes it with its own codec (png.py), so the
+    # files' bytes differ from imageio's; their pixels are equal
+    np.testing.assert_array_equal(
+        imageio.imread(tmp_path / "t" / "m.png"),
+        imageio.imread(tmp_path / "j" / "m.png"))
+
+
+@pytest.mark.parametrize("textures", ["vertex", None])
+def test_save_obj_vertex_colours_match_jax(rng, tmp_path, textures):
+    """texture_type='vertex' (avg_uv's vertex_label.obj) and no texture."""
+    verts = rng.standard_normal((7, 3)).astype(np.float32)
+    faces = rng.randint(0, 7, (5, 3))
+    cols = rng.uniform(0, 1, (7, 3)) if textures else None
+    save_obj(str(tmp_path / "t" / "m.obj"), verts, faces, cols,
+             texture_type="vertex")
+    jax_save_obj(str(tmp_path / "j" / "m.obj"), verts, faces, cols,
+                 texture_type="vertex")
+    assert ((tmp_path / "t" / "m.obj").read_bytes()
+            == (tmp_path / "j" / "m.obj").read_bytes())
+    assert sorted(p.name for p in (tmp_path / "t").iterdir()) == ["m.obj"]
+
+
+def test_color_map_and_colorize_match_jax(rng):
+    for n, norm in ((5, True), (5, False), (256, False)):
+        np.testing.assert_array_equal(image.color_map(n, norm),
+                                      jimage.color_map(n, norm))
+    gray = rng.randint(0, 6, (9, 13)).astype(np.uint8)
+    gray[0, :3] = 255
+    np.testing.assert_array_equal(image.colorize(gray, 5),
+                                  jimage.colorize(gray, 5))
+
+
+def test_identity_grid_matches_jax():
+    from umr_tpu.ops.grid_sample import identity_grid as jgrid
+    from umr_tpu_torch.ops.grid_sample import identity_grid
+
+    for align in (True, False):
+        np.testing.assert_allclose(identity_grid(5, 7, align).numpy(),
+                                   np.asarray(jgrid(5, 7, align)),
+                                   rtol=0, atol=2e-7)
 
 
 @pytest.mark.parametrize("shape,scale", [((40, 30, 3), 256 / 40),

@@ -190,6 +190,26 @@ def test_corr_loss_chamfer_matches_jax(rng, template):
             avg=False)[0], verts, cams))
 
 
+def test_corr_loss_of_a_template_without_part_vertices_raises(rng,
+                                                               template):
+    """A template with no part vertices at all has no distances to
+    average: both packages raise, as the JAX concatenation of none does
+    (train_s2 refuses such a template before it gets here)."""
+    B = 2
+    pvi = [np.zeros(0, np.int64)] * 4
+    pts = [rng.uniform(-1, 1, (B, 3, 2)).astype(np.float32)] * 4
+    verts = np.tile(template.verts[None], (B, 1, 1)).astype(np.float32)
+    cams = np.tile([[0.7, 0, 0, 1, 0, 0, 0]], (B, 1)).astype(np.float32)
+    with pytest.raises(ValueError):
+        tcomp.corr_loss_chamfer(SoftRenderer().project_points, pvi,
+                                [t_of(p) for p in pts], t_of(verts),
+                                t_of(cams))
+    with pytest.raises(ValueError):
+        jcomp.corr_loss_chamfer(JaxRenderer().project_points, pvi,
+                                [jnp.asarray(p) for p in pts],
+                                jnp.asarray(verts), jnp.asarray(cams))
+
+
 def _mesh_inputs(rng, template, B=2, K=2):
     V = template.num_verts
     verts = (template.verts[None] * rng.uniform(0.8, 1.1, (B, 1, 3))).astype(

@@ -1,8 +1,8 @@
-"""The port (the inference slice and a training step of each stage) runs
-with jax,
-flax, optax, orbax, absl and the JAX package umr_tpu unavailable, and no
+"""The port (the inference slice, a training step of each stage and the
+stage handoff through files: avg_uv, test_kp) runs with jax, flax, optax,
+orbax, absl, imageio, cv2 and the JAX package umr_tpu unavailable, and no
 file of it (nor chip_smoke.py) imports them: the machine with the card
-has none of the first, and umr_tpu's __init__ imports jax wherever jax is
+has none of them but umr_tpu, whose __init__ imports jax wherever jax is
 installed."""
 
 import os
@@ -12,7 +12,8 @@ import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
-BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "absl", "umr_tpu")
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "absl", "imageio",
+           "cv2", "umr_tpu")
 
 SCRIPT = r"""
 import os, sys, tempfile
@@ -28,10 +29,11 @@ from umr_tpu_torch.experiments import demo, test_iou
 from umr_tpu_torch.mesh import build_template
 from umr_tpu_torch.models import MeshNet, init_weights
 
+tmp = tempfile.mkdtemp()
 t = build_template(2, 1, 2)
 m = init_weights(MeshNet(t, input_size=32, nz_feat=16, z_dim=8,
                          num_hypo_cams=2), torch.Generator().manual_seed(0))
-path = os.path.join(tempfile.mkdtemp(), "pred_net.pth")
+path = os.path.join(tmp, "pred_net.pth")
 torch.save(m.state_dict(), path)
 cfg = Config(image_size=32, subdivide=2, tex_size=2, num_hypo_cams=2,
              nz_feat=16, z_dim=8, model_path=path).sync_image_size()
@@ -43,7 +45,8 @@ assert panel.shape == (64, 96, 3) and np.isfinite(panel).all()
 from umr_tpu_torch.experiments import train_s2
 cfg = Config(image_size=32, img_size=32, batch_size=2, num_hypo_cams=2,
              anti_aliasing=False, subdivide=2, tex_size=2, nz_feat=16,
-             z_dim=8, num_iter=1, print_scalars=False)
+             z_dim=8, num_iter=1, print_scalars=False,
+             checkpoint_dir=os.path.join(tmp, "snap"))
 rng = np.random.RandomState(1)
 pvi = [rng.permutation(t.num_verts)[:20] for _ in range(4)]
 trainer = train_s2.run(cfg, [synthetic_batch(rng, 2, 32)], device="cpu",
@@ -54,10 +57,24 @@ from umr_tpu_torch.experiments import train_s1
 cfg = train_s1.config(["--image_size", "32", "--batch_size", "2",
                        "--anti_aliasing=false", "--subdivide", "2",
                        "--tex_size", "2", "--nz_feat", "16", "--z_dim", "8",
-                       "--num_iter", "1", "--noprint_scalars"])
+                       "--num_iter", "1", "--noprint_scalars",
+                       "--checkpoint_dir", os.path.join(tmp, "snap"),
+                       "--name", "s1"])
 trainer = train_s1.run(cfg, [synthetic_batch(rng, 2, 32)], device="cpu")
 assert trainer.state.step == 1
 assert all(np.isfinite(v) for v in trainer.history[0].values())
+from umr_tpu_torch.experiments import avg_uv, test_kp
+cfg = cfg.replace(model_path=os.path.join(tmp, "snap", "s1",
+                                          "pred_net_latest.pth"),
+                  out_dir=os.path.join(tmp, "stemp"))
+out = avg_uv.run(cfg, [synthetic_batch(rng, 2, 32)], device="cpu")
+assert os.path.exists(os.path.join(out, "semantic_seg.png"))
+cfg = Config(image_size=32, img_size=32, subdivide=2, tex_size=2,
+             num_hypo_cams=2, nz_feat=16, z_dim=8, model_path=path,
+             number_pairs=2, mode="cam", anti_aliasing=False)
+pairs = [[synthetic_batch(rng, 1, 32) for _ in range(2)] for _ in range(2)]
+pck = test_kp.run(cfg, pairs, device="cpu")
+assert 0.0 <= pck[0] <= pck[1] <= 1.0
 loaded = [k for k, v in sys.modules.items()
           if v is not None and k.split(".")[0] in %(blocked)r]
 assert not loaded, loaded

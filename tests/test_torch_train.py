@@ -354,11 +354,13 @@ def test_adam_update_matches_optax(optim_bs):
     assert np.abs(np_of(w) - p0).max() > 1e-3
 
 
-def test_trainer_and_run_on_cpu():
+def test_trainer_and_run_on_cpu(tmp_path):
     """train_s2.run takes 2 steps: finite losses, parameters changed, the
-    GAN's real images one batch behind."""
+    GAN's real images one batch behind. Each run writes into its own
+    checkpoint directory under tmp_path (the trainer auto-resumes from
+    what it finds there)."""
     cfg = Config(**dict(KW, use_sgd=False, learning_rate=1e-4), num_iter=2,
-                 print_scalars=False)
+                 print_scalars=False, checkpoint_dir=str(tmp_path))
     template = build_template(2, 1, 2)
     seg, pvi = _semantic(template)
     rng = np.random.RandomState(4)
@@ -382,7 +384,7 @@ def test_trainer_and_run_on_cpu():
     _, _, _, init_fn, step = _port_step(cfg, template, seg, pvi)
     state = init_fn(0)
     before = _params(state)
-    t = Trainer(cfg, recording_step, state, loader)
+    t = Trainer(cfg.replace(name="lag"), recording_step, state, loader)
     t.train()
     reals = [b["img"] * b["mask"][..., None] for b in loader]
     np.testing.assert_array_equal(seen[0], reals[0])

@@ -45,8 +45,8 @@ Tolerances, from the readings of this file's inputs:
     (reading 1.2e-7).
 """
 
+import dataclasses
 import os
-from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -375,45 +375,68 @@ def test_check_supported_by_stage():
                              build_template(2, 1, 2), "cpu")
 
 
-def test_trainer_hooks():
+@dataclasses.dataclass
+class _CountingState(tsteps.TrainState):
+    ends: int = 0                    # on_epoch_end calls
+
+
+def _counting_state():
+    """A TrainState (the trainer checkpoints it) over tiny modules, with an
+    epoch-end counter `ends`."""
+    model, disc = torch.nn.Linear(2, 2), torch.nn.Linear(1, 1)
+    opt = torch.optim.SGD(list(model.parameters()) + list(disc.parameters()),
+                          lr=0.1)
+    return _CountingState(step=0, updates=0, model=model, disc=disc,
+                          lpips=None, optimizer=opt,
+                          generator=torch.Generator())
+
+
+def test_trainer_hooks(tmp_path):
     """extra_step_args(epoch) reach each step; on_epoch_end runs after
     each whole epoch and its state is kept; a run cut by num_iter inside
-    an epoch skips that epoch's hook."""
+    an epoch skips that epoch's hook. Both hooks return new states, so
+    a trainer that dropped either would fail."""
     calls = []
 
     def step_fn(state, db, epoch):
         calls.append(("step", state.step, state.ends, epoch))
-        return (SimpleNamespace(step=state.step + 1, ends=state.ends),
+        return (dataclasses.replace(state, step=state.step + 1),
                 {"total_loss": torch.tensor(float(state.step))})
 
     def on_epoch_end(state, epoch):
         calls.append(("end", state.step, state.ends, epoch))
-        return SimpleNamespace(step=state.step, ends=state.ends + 1)
+        return dataclasses.replace(state, ends=state.ends + 1)
 
     loader = [synthetic_batch(np.random.RandomState(i), 2, IMG)
               for i in range(2)]
-    cfg = Config(num_epochs=2, print_scalars=False)
-    t = Trainer(cfg, step_fn, SimpleNamespace(step=0, ends=0), loader,
+    cfg = Config(num_epochs=2, print_scalars=False,
+                 checkpoint_dir=str(tmp_path), name="a")
+    start = _counting_state()
+    t = Trainer(cfg, step_fn, start, loader,
                 extra_step_args=lambda epoch: (epoch * 0.5,),
                 on_epoch_end=on_epoch_end)
-    assert t.train() == SimpleNamespace(step=4, ends=2)
+    assert t.train() == dataclasses.replace(start, step=4, ends=2)
+    assert (start.step, start.ends) == (0, 0)
     assert calls == [("step", 0, 0, 0.0), ("step", 1, 0, 0.0),
                      ("end", 2, 0, 0), ("step", 2, 1, 0.5),
                      ("step", 3, 1, 0.5), ("end", 4, 1, 1)]
+    assert [sc["total_loss"] for sc in t.history] == [0.0, 1.0, 2.0, 3.0]
     calls.clear()
-    t = Trainer(cfg.replace(num_iter=3), step_fn,
-                SimpleNamespace(step=0, ends=0), loader,
+    start = _counting_state()
+    t = Trainer(cfg.replace(num_iter=3, name="b"), step_fn, start, loader,
                 extra_step_args=lambda epoch: (epoch * 0.5,),
                 on_epoch_end=on_epoch_end)
-    assert t.train() == SimpleNamespace(step=3, ends=1)
+    assert t.train() == dataclasses.replace(start, step=3, ends=1)
     assert [c[0] for c in calls] == ["step", "step", "end", "step"]
 
 
-def test_train_s1_run_on_cpu():
+def test_train_s1_run_on_cpu(tmp_path):
     """2 steps over a 2-batch loader, one epoch, the template updated at
-    its end; without a device the entry point asks for the card."""
+    its end; without a device the entry point asks for the card. The run
+    writes into a checkpoint directory under tmp_path."""
     cfg = Config(**dict(KW, use_sgd=False, learning_rate=1e-4),
-                 num_epochs=1, update_template_freq=1, print_scalars=False)
+                 num_epochs=1, update_template_freq=1, print_scalars=False,
+                 checkpoint_dir=str(tmp_path))
     loader = [synthetic_batch(np.random.RandomState(10 + i), B, IMG)
               for i in range(2)]
     template = build_template(2, 1, 2)

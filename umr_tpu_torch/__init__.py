@@ -13,10 +13,17 @@ Port module -> JAX counterpart (umr_tpu/...):
                              laplacian and flatten_idx)
   data.py                    data/synthetic.py::synthetic_batch, with the
                              barrier of utils/image.py::compute_dt_barrier
-  obj_io.py                  utils/obj_io.py::save_obj (surface textures)
+  obj_io.py                  utils/obj_io.py::save_obj (surface and vertex
+                             textures; the atlas through png.py)
+  png.py                     the 8-bit PNG files imageio reads and writes
+                             (zlib only: the card's machine has no imageio)
+  image.py                   utils/image.py::color_map, colorize
+  visualizer.py              utils/visualizer.py (green, red, Visualizer,
+                             save_image_grid)
   ops/quaternion.py          ops/quaternion.py (incl. ang2quat, rotate_cam)
   ops/projection.py          ops/projection.py
-  ops/grid_sample.py         ops/grid_sample.py (F.grid_sample, align_corners)
+  ops/grid_sample.py         ops/grid_sample.py (F.grid_sample, align_corners;
+                             identity_grid)
   ops/rasterize.py           ops/rasterize.py, forward, training subset;
                              the forward kernel's plain version
   ops/rasterize_bwd.py       ops/raster_kernel_bwd.py's math in plain torch:
@@ -41,11 +48,16 @@ Port module -> JAX counterpart (umr_tpu/...):
                              torch for the discriminator and LPIPS
   losses/losses.py           losses/losses.py
   losses/composite.py        losses/composite.py
-  training/steps.py          training/steps.py::build_s2_step
-  training/trainer.py        training/trainer.py (prepare_batch, the loop)
+  training/steps.py          training/steps.py::build_s2_step, build_s1_step
+  training/trainer.py        training/trainer.py (the loop, lagged drain,
+                             cadences, auto-resume, stage budget; no visuals)
+  training/checkpoints.py    training/checkpoints.py (torch.save for Orbax)
   experiments/test_iou.py    experiments/test_iou.py
   experiments/demo.py        experiments/demo.py
-  experiments/train_s2.py    experiments/train_s2.py::run
+  experiments/train_s1.py    experiments/train_s1.py
+  experiments/train_s2.py    experiments/train_s2.py (load_semantic_template)
+  experiments/avg_uv.py      experiments/avg_uv.py
+  experiments/test_kp.py     experiments/test_kp.py (no --visualize)
   cli.py                     config.py::define_flags (argparse, same names)
 
 Parity traps the port reproduces:
@@ -71,7 +83,11 @@ Parity traps the port reproduces:
   * losses: TexCycle marks face id -1 (background) on the last face; the
     s2 cycle target is the hard render's p2f, all zeros; corr_loss's
     zero-weighted neck/back parts stay in the mean's denominator.
-  * trainer: the GAN's real images lag one batch.
+  * trainer: the GAN's real images lag one batch; a run resumed
+    mid-epoch restarts that epoch's batches; a run cut by num_iter skips
+    that epoch's end hook.
+  * test_kp: the flow mode scales keypoints by 256 whatever the image
+    size.
 """
 
 __version__ = "0.1.0"

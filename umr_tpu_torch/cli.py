@@ -9,9 +9,13 @@ import dataclasses
 
 from .config import Config
 
-# stage 1's flag defaults (the JAX package's train_s1 overrides)
+# each entry point's flag defaults (the JAX package's define_flags
+# overrides of the same entry point)
 S1_DEFAULTS = dict(mask_loss_wt=3.0, flatten_reg_wt=4e-4, deform_reg_wt=5.0,
                    tex_cycle_loss_wt=0.5, use_scops=False)
+AVG_UV_DEFAULTS = dict(use_scops=True, is_train=False)
+TEST_KP_DEFAULTS = dict(split="test", use_scops=False, batch_size=2,
+                        number_pairs=10000, is_train=False)
 
 
 def _bool(v):

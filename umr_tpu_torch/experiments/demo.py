@@ -4,8 +4,8 @@
   python -m umr_tpu_torch.experiments.demo --img_path <jpg> \\
       --model_path <pth> --out_path cachedir/demo/
 
-render_panels is pure torch; run() adds the file I/O (imageio, imported
-inside it).
+render_panels is pure torch; run() adds the file I/O: a PNG input and
+the PNG panel through the port's codec (png.py; a JPEG input raises).
 """
 
 from __future__ import annotations
@@ -20,6 +20,7 @@ from ..config import RESNET_MEAN, RESNET_STD, Config
 from ..models.mesh_net import symmetrize
 from ..ops.grid_sample import sample_textures
 from ..ops.quaternion import axis_angle_to_quat, hamilton_product
+from ..png import read_image, write_png
 from ..renderer import SoftRenderer
 
 BLUE = (156 / 255.0, 199 / 255.0, 234 / 255.0)
@@ -99,10 +100,9 @@ def resize(img, scale_factor):
 
 
 def preprocess_image(img_path, img_size=256):
-    """Scale the longer side to img_size, centre square crop, background 1."""
-    import imageio.v2 as imageio
-
-    img = imageio.imread(img_path) / 255.0
+    """Scale the longer side to img_size, centre square crop, background 1.
+    PNG files only (png.read_image)."""
+    img = read_image(img_path) / 255.0
     if img.ndim == 2:
         img = np.repeat(img[:, :, None], 3, axis=2)
     img = resize(img[..., :3], float(img_size) / np.max(img.shape[:2]))
@@ -114,8 +114,6 @@ def preprocess_image(img_path, img_size=256):
 def run(cfg: Config, device=None):
     """Write pred_tex.png and pred_mesh.obj for cfg.img_path into
     cfg.out_path; returns the png's path."""
-    import imageio.v2 as imageio
-
     from ..mesh import build_template
     from ..obj_io import save_obj
     from .test_iou import build_eval_model
@@ -129,7 +127,7 @@ def run(cfg: Config, device=None):
         generator)
     os.makedirs(cfg.out_path, exist_ok=True)
     out_png = os.path.join(cfg.out_path, "pred_tex.png")
-    imageio.imwrite(out_png, (np.clip(panel, 0, 1) * 255).astype(np.uint8))
+    write_png(out_png, (np.clip(panel, 0, 1) * 255).astype(np.uint8))
     generator.manual_seed(cfg.seed)
     verts, _, tex, _ = predict_mesh(model, img, generator)
     save_obj(os.path.join(cfg.out_path, "pred_mesh.obj"),

@@ -2,7 +2,12 @@
 online template update (port of umr_tpu/experiments/train_s1.py::run).
 
 run() takes the dataloader (the CUB loader is not ported yet); config()
-parses stage 1's command line, whose defaults are cli.S1_DEFAULTS.
+parses stage 1's command line, whose defaults are cli.S1_DEFAULTS. The
+trainer writes {checkpoint_dir}/{name}/pred_net_latest.pth (what avg_uv
+reads), pred_state.pt (auto-resume), loss_log.txt, opts.log and
+stage_budget.json.
+
+  python -m umr_tpu_torch.experiments.train_s1 --name cub_s1 ...
 """
 
 from __future__ import annotations
@@ -14,6 +19,7 @@ from ..config import Config, resolve_device
 from ..mesh import build_template
 from ..training.steps import build_s1_step
 from ..training.trainer import Trainer, prepare_batch
+from ..visualizer import green
 
 
 def config(argv=None) -> Config:
@@ -53,9 +59,8 @@ def run(cfg: Config, dataloader=None, device=None):
             count += f.shape[0]
         state = template_update_fn(state, total / count)
         updates.append((epoch, count))
-        if cfg.print_scalars:
-            print(f"epoch {epoch}: template updated from {count} images",
-                  flush=True)
+        print(green(f"epoch {epoch}: template updated from {count} "
+                    "images"), flush=True)
         return state
 
     trainer = Trainer(cfg, step_fn, state, dataloader,
@@ -64,3 +69,11 @@ def run(cfg: Config, dataloader=None, device=None):
     trainer.template_updates = updates
     trainer.train()
     return trainer
+
+
+def main(argv=None):
+    run(config(argv))
+
+
+if __name__ == "__main__":
+    main()

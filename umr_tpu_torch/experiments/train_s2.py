@@ -1,22 +1,80 @@
 """Stage-2 training: the full semantic-consistency objective (port of
-umr_tpu/experiments/train_s2.py::run).
+umr_tpu/experiments/train_s2.py).
 
-run() takes the dataloader (the CUB loader is not ported yet) and the
-semantic template that avg_uv writes, as arrays: reading avg_uv's files
-from disk waits for the avg_uv port.
+  python -m umr_tpu_torch.experiments.train_s2 --name cub_s2 \\
+      --stemp_path <avg_uv output dir> --batch_size 16 ...
+
+run() takes the dataloader (the CUB loader is not ported yet). The
+semantic template comes from avg_uv's files in --stemp_path (mean_v.pth,
+semantic_seg.png, {head,neck,back,belly}_vertices.npy, in vertices_idx/
+or beside the PNG), or as arrays.
 """
 
 from __future__ import annotations
 
+import os
+import os.path as osp
+import warnings
+
 import numpy as np
 import torch
 
+from ..cli import parse_config
 from ..config import Config, resolve_device
 from ..losses.composite import PartMatchingLoss
 from ..mesh import build_template
+from ..models.weights import load_checkpoint
+from ..png import read_png
 from ..renderer import SoftRenderer
 from ..training.steps import build_s2_step
 from ..training.trainer import Trainer
+from ..visualizer import red
+
+PARTS = ("head", "belly", "neck", "back")
+
+
+def load_semantic_template(cfg: Config, template):
+    """avg_uv's files in cfg.stemp_path -> (mean_v [num_output,3] or None,
+    semantic_seg [H,W] float labels, part_vert_idx: 4 index arrays head,
+    belly, neck, back). A template failing the liveliness bar (every part
+    >= part_min_vert_frac of the template's vertices) raises ValueError,
+    or warns under cfg.force_template: corr_loss and the part matching
+    weigh head and belly only, so starved parts silently zero the
+    semantic objective."""
+    stemp = cfg.stemp_path
+    mean_v = None
+    mv_path = osp.join(stemp, "mean_v.pth")
+    if osp.exists(mv_path):
+        mean_v = np.asarray(torch.load(mv_path, map_location="cpu",
+                                       weights_only=True)).astype(np.float32)
+    seg_path = osp.join(stemp, "semantic_seg.png")
+    if not osp.exists(seg_path):
+        raise FileNotFoundError(f"{seg_path} missing: run avg_uv first")
+    seg = read_png(seg_path).astype(np.float32)
+
+    idx_dir = osp.join(stemp, "vertices_idx")
+    if not osp.isdir(idx_dir):
+        idx_dir = stemp             # avg_uv writes them beside the PNG
+    part_vert_idx = [
+        np.load(osp.join(idx_dir, f"{p}_vertices.npy")).astype(np.int64)
+        for p in PARTS]
+    counts = dict(zip(PARTS, (len(i) for i in part_vert_idx)))
+    print(f"semantic template part vertex counts: {counts}")
+    min_cnt = max(1, int(np.ceil(cfg.part_min_vert_frac
+                                 * template.num_verts)))
+    starved = {n: c for n, c in counts.items() if c < min_cnt}
+    if starved:
+        msg = (f"semantic template fails the liveliness bar "
+               f"(every part >= {min_cnt} verts): {starved} of {counts}. "
+               "corr_loss/part_matching will be degenerate. Re-run "
+               "avg_uv with a better s1 checkpoint (check the "
+               "uv_flow_area scalar) or pass --force_template to train "
+               "on it anyway.")
+        if not cfg.force_template:
+            raise ValueError(msg)
+        warnings.warn(msg)
+        print(red("WARNING (forced): " + msg))
+    return mean_v, seg, part_vert_idx
 
 
 def run(cfg: Config, dataloader=None, device=None, semantic=None):
@@ -24,18 +82,19 @@ def run(cfg: Config, dataloader=None, device=None, semantic=None):
     synthetic_batch-like dicts), or cfg.num_iter steps when that is set,
     on the card unless device="cpu". semantic: (mean_v [num_output,3] or
     None, semantic_seg [H,W] labels 0..num_parts, part_vert_idx: 4 index
-    arrays head, belly, neck, back). Returns the Trainer (its state and
-    the per-step history)."""
+    arrays head, belly, neck, back), or None to read avg_uv's files from
+    cfg.stemp_path. With num_pretrain_epochs > 0 or UMR_TPU_RESUME set,
+    the model starts from that .pth ({checkpoint_dir}/{name}/
+    pred_net_latest.pth unless UMR_TPU_RESUME names one). Returns the
+    Trainer (its state and the per-step history)."""
     if dataloader is None:
         raise NotImplementedError(
             "pass a dataloader: the CUB loader is not ported yet")
-    if semantic is None:
-        raise NotImplementedError(
-            "pass semantic=(mean_v, seg, part_vert_idx): reading avg_uv's "
-            "semantic template from disk is not ported yet")
     cfg.validate()
     device = resolve_device(device)
     template = build_template(cfg.subdivide, cfg.axis, cfg.tex_size)
+    if semantic is None:
+        semantic = load_semantic_template(cfg, template)
     mean_v, seg, part_vert_idx = semantic
     part_renderer = SoftRenderer(
         image_size=cfg.image_size, render_type="softmax",
@@ -50,6 +109,19 @@ def run(cfg: Config, dataloader=None, device=None, semantic=None):
     if mean_v is not None:
         with torch.no_grad():
             model.mean_v.copy_(torch.as_tensor(np.asarray(mean_v, np.float32)))
+    if cfg.num_pretrain_epochs > 0 or os.environ.get("UMR_TPU_RESUME"):
+        pth = os.environ.get("UMR_TPU_RESUME", osp.join(
+            cfg.checkpoint_dir, cfg.name, "pred_net_latest.pth"))
+        if osp.exists(pth):
+            load_checkpoint(model, pth)
     trainer = Trainer(cfg, step_fn, state, dataloader)
     trainer.train()
     return trainer
+
+
+def main(argv=None):
+    run(parse_config(argv))
+
+
+if __name__ == "__main__":
+    main()

@@ -8,6 +8,7 @@ umr_tpu/training/checkpoints.py::load_pth.
 from __future__ import annotations
 
 import os
+import warnings
 
 import numpy as np
 import torch
@@ -78,11 +79,31 @@ def load_into(model, sd, allow_missing=()):
     return model
 
 
+_BN_STATS = ("running_mean", "running_var")
+
+
+def _without_bn_stats(model, sd, path):
+    """Where `sd` carries none of the model's BatchNorm running statistics
+    (an export from before they were saved), warn loudly: eval then runs
+    with init statistics. Returns the key suffixes load_into may miss."""
+    stats = [k for k in model.state_dict() if k.endswith(_BN_STATS)]
+    if not stats or any(k in sd for k in stats):
+        return ()
+    msg = (f"{path} carries no BatchNorm running stats (pre-fix export?): "
+           "eval will run with INIT statistics and be badly degraded. "
+           "Re-export the .pth from the training state.")
+    print("WARNING: " + msg)
+    warnings.warn(msg)
+    return _BN_STATS
+
+
 def load_checkpoint(model, path):
     """Load a .pth into `model` (MeshNet or MeshNetS1): either flax-path
     keys (the JAX package's trainer output, mapped by
     state_dict_from_flax) or torch keys (the port's own or a reference
-    pred_net_*.pth)."""
+    pred_net_*.pth). One without BatchNorm statistics loads with a warning
+    and keeps the model's init statistics, as the JAX package's load_pth
+    does."""
     raw = torch.load(path, map_location="cpu", weights_only=True)
     if any("/" in k for k in raw):
         flat = {k: v.numpy() for k, v in raw.items()
@@ -95,10 +116,12 @@ def load_checkpoint(model, path):
                    and k.endswith("/kernel"))
         sd = state_dict_from_flax(flat, num_cams, n_up, stage)
         # a flax export carries params, BN stats and mean_v, not buffers
-        return load_into(model, sd, allow_missing=("cam_biases",))
+        return load_into(model, sd, allow_missing=(
+            "cam_biases", *_without_bn_stats(model, sd, path)))
     sd = {k: v for k, v in raw.items()
           if k not in _REFERENCE_ONLY and ".resnet.fc." not in k}
-    return load_into(model, sd)
+    return load_into(model, sd,
+                     allow_missing=_without_bn_stats(model, sd, path))
 
 
 def _conv_from_flax(p):

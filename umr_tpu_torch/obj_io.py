@@ -1,13 +1,16 @@
-"""Wavefront .obj export with a baked per-face texture atlas (copy of the
-surface-texture path of umr_tpu/utils/obj_io.py::save_obj, so that the
-port never imports the JAX package; tests/test_torch_host.py pins the
-written files equal to the JAX package's)."""
+"""Wavefront .obj export, with a baked per-face texture atlas or per-vertex
+colours (copy of umr_tpu/utils/obj_io.py::save_obj, so that the port
+never imports the JAX package; the atlas PNG goes through png.py, not
+imageio; tests/test_torch_host.py pins the written files equal to the
+JAX package's)."""
 
 from __future__ import annotations
 
 import os
 
 import numpy as np
+
+from .png import write_png
 
 
 def bake_texture_atlas(textures, texture_res=16):
@@ -46,27 +49,35 @@ def bake_texture_atlas(textures, texture_res=16):
     return atlas, uvs
 
 
-def save_obj(path, vertices, faces, textures, texture_res=16):
-    """vertices [V,3]; faces [F,3] int; textures [F,T2,3]. Writes {path},
-    a baked {stem}.png atlas and {stem}.mtl."""
-    import imageio.v2 as imageio
-
+def save_obj(path, vertices, faces, textures=None, texture_res=16,
+             texture_type="surface"):
+    """vertices [V,3]; faces [F,3] int; textures [F,T2,3] ('surface') or
+    [V,3] ('vertex'). Writes {path}, and for surface textures a baked
+    {stem}.png atlas and {stem}.mtl."""
     vertices = np.asarray(vertices)
     faces = np.asarray(faces, np.int64)
     stem = os.path.splitext(path)[0]
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-    atlas, uvs = bake_texture_atlas(np.asarray(textures), texture_res)
-    imageio.imwrite(stem + ".png",
-                    (np.clip(atlas, 0, 1) * 255).astype(np.uint8))
-    with open(stem + ".mtl", "w") as f:
-        f.write("newmtl material_1\nmap_Kd %s.png\n" % os.path.basename(stem))
-    lines = [f"mtllib {os.path.basename(stem)}.mtl"]
-    lines += ["v %f %f %f" % (v[0], v[1], v[2]) for v in vertices]
-    lines += ["vt %f %f" % (uv[0], uv[1]) for uv in uvs.reshape(-1, 2)]
-    lines.append("usemtl material_1")
-    for i, face in enumerate(faces):
-        lines.append("f %d/%d %d/%d %d/%d"
-                     % (face[0] + 1, 3 * i + 1, face[1] + 1, 3 * i + 2,
-                        face[2] + 1, 3 * i + 3))
+    surface = textures is not None and texture_type == "surface"
+    lines = [f"mtllib {os.path.basename(stem)}.mtl"] if surface else []
+    if textures is not None and texture_type == "vertex":
+        lines += ["v %f %f %f %f %f %f" % (v[0], v[1], v[2], c[0], c[1], c[2])
+                  for v, c in zip(vertices, np.asarray(textures))]
+    else:
+        lines += ["v %f %f %f" % (v[0], v[1], v[2]) for v in vertices]
+    if surface:
+        atlas, uvs = bake_texture_atlas(np.asarray(textures), texture_res)
+        write_png(stem + ".png", (np.clip(atlas, 0, 1) * 255).astype(np.uint8))
+        with open(stem + ".mtl", "w") as f:
+            f.write("newmtl material_1\nmap_Kd %s.png\n"
+                    % os.path.basename(stem))
+        lines += ["vt %f %f" % (uv[0], uv[1]) for uv in uvs.reshape(-1, 2)]
+        lines.append("usemtl material_1")
+        for i, face in enumerate(faces):
+            lines.append("f %d/%d %d/%d %d/%d"
+                         % (face[0] + 1, 3 * i + 1, face[1] + 1, 3 * i + 2,
+                            face[2] + 1, 3 * i + 3))
+    else:
+        lines += ["f %d %d %d" % (f[0] + 1, f[1] + 1, f[2] + 1) for f in faces]
     with open(path, "w") as f:
         f.write("\n".join(lines) + "\n")

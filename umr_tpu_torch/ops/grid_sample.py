@@ -4,6 +4,7 @@
 
 from __future__ import annotations
 
+import torch
 import torch.nn.functional as F
 
 
@@ -21,3 +22,17 @@ def sample_textures(texture_flow, images):
     """texture_flow: [B, F, T, T, 2]; images: [B, H, W, C]
     -> [B, F, T, T, C]."""
     return grid_sample(images, texture_flow)
+
+
+def identity_grid(H, W, align_corners=True, dtype=torch.float32,
+                  device=None):
+    """The identity affine grid: [H, W, 2] with (x, y) in [-1, 1]
+    (linspace(-1, 1, size) under align_corners)."""
+    if align_corners:
+        ys = torch.linspace(-1.0, 1.0, H, dtype=dtype, device=device)
+        xs = torch.linspace(-1.0, 1.0, W, dtype=dtype, device=device)
+    else:
+        ys = (torch.arange(H, dtype=dtype, device=device) * 2 + 1 - H) / H
+        xs = (torch.arange(W, dtype=dtype, device=device) * 2 + 1 - W) / W
+    gy, gx = torch.meshgrid(ys, xs, indexing="ij")
+    return torch.stack([gx, gy], dim=-1)

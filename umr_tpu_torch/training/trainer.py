@@ -1,16 +1,30 @@
-"""The training loop, minimal (port of umr_tpu/training/trainer.py:
-prepare_batch and the epoch / step loop). Checkpoints, auto-resume,
-visuals and the stage budget are not ported yet.
+"""The training loop (port of umr_tpu/training/trainer.py): epochs over
+the dataloader, the batch's host preparation and its copy to the card,
+the step, a one-step-lagged scalar drain, the log and the print / save
+cadences, checkpoints with auto-resume, and the stage budget.
+
+Files in {checkpoint_dir}/{name}/: opts.log (the Config), loss_log.txt
+(visualizer.py), pred_net_{latest,<epoch>}.pth and pred_state.pt
+(checkpoints.py), stage_budget.json. Visuals are not ported: the display
+cadence does nothing, as the JAX trainer's without a visuals_fn.
 """
 
 from __future__ import annotations
 
+import json
+import os
 import time
 
 import numpy as np
 import torch
 
 from ..config import Config, normalize_images
+from ..visualizer import Visualizer, green
+from . import checkpoints
+
+# where each step cycle's wall time goes (stage_budget.json)
+BUDGET_KEYS = ("loader", "prep", "transfer", "dispatch", "drain", "vis",
+               "save")
 
 
 def prepare_batch(batch, use_scops=True, use_texture=True):
@@ -38,9 +52,17 @@ class Trainer:
     """Epochs over the dataloader, one step_fn(state, batch,
     *extra_step_args(epoch)) call per batch, stopping at cfg.num_iter when
     it is set; after each whole epoch, on_epoch_end(state, epoch) may
-    return a new state (stage 1's template update). history holds each
-    step's scalars (as floats) and its wall time, iter_time, from the call
-    to the scalars' arrival on the host."""
+    return a new state (stage 1's template update). state is a
+    training/steps.py::TrainState.
+
+    When the model lies on the card, the trainer copies each batch there
+    from pinned host memory without blocking, and reads a step's scalars
+    back only after it has dispatched the next step (their copy to the
+    host is queued behind the step that made them), so host work can
+    overlap the card's. On the CPU the step takes the numpy batch.
+
+    history holds each step's scalars (as floats) and iter_time, its wall
+    time from dispatch to the drain of its scalars."""
 
     def __init__(self, cfg: Config, step_fn, state, dataloader,
                  extra_step_args=None, on_epoch_end=None):
@@ -50,36 +72,213 @@ class Trainer:
         self.dataloader = dataloader
         self.extra_step_args = extra_step_args or (lambda epoch: ())
         self.on_epoch_end = on_epoch_end
+        self.device = next(state.model.parameters()).device
         self.history = []
+        self.save_dir = os.path.join(cfg.checkpoint_dir, cfg.name)
+        os.makedirs(self.save_dir, exist_ok=True)
+        self._dump_opts()
+        self._maybe_auto_resume()
         # the GAN's "real" images lag one batch behind, as the reference's
         # random_imgs buffer (filled from the first batch, refreshed after
         # each step; ref train_s2.py:183-184, 270)
         self._lagged_real = None
+        self._pending = None
+        self._budget = dict.fromkeys(BUDGET_KEYS, 0.0)
+        self._budget_n = 0
+        self._first_cycle_s = None
+
+    def _maybe_auto_resume(self):
+        """Restore {save_dir}/pred_state.pt when it exists: step, weights,
+        optimizer, generator and template come back. UMR_TPU_RESUME (the
+        entry points' .pth import) overrides it; UMR_TPU_NO_AUTORESUME=1
+        disables it."""
+        if (os.environ.get("UMR_TPU_NO_AUTORESUME")
+                or os.environ.get("UMR_TPU_RESUME")):
+            return
+        path = checkpoints.state_path(self.save_dir)
+        if not os.path.exists(path):
+            return
+        try:
+            checkpoints.restore_state(self.save_dir, self.state)
+            print(green(f"Auto-resumed from {path} at step "
+                        f"{self.state.step}."))
+        except (ValueError, KeyError, RuntimeError) as e:
+            # a state of another model, or a damaged file: start fresh
+            print(f"Auto-resume from {path} failed ({e}); starting fresh.")
+
+    def _dump_opts(self):
+        with open(os.path.join(self.save_dir, "opts.log"), "w") as f:
+            for k, v in sorted(vars(self.cfg).items()):
+                f.write(f"{k}: {v}\n")
+
+    def save(self, label, export_pth=True):
+        """The resume state, and the .pth unless export_pth=False (the
+        mid-run cadence: only stage handoffs read the .pth)."""
+        t0 = time.perf_counter()
+        checkpoints.save_state(self.save_dir, self.state)
+        if export_pth:
+            checkpoints.save_pth(
+                os.path.join(self.save_dir, f"pred_net_{label}.pth"),
+                self.state.model)
+        self._budget["save"] += time.perf_counter() - t0
+        self._dump_budget()
+
+    def _dump_budget(self):
+        if not self._budget_n:
+            return
+        n = self._budget_n
+        out = {f"{k}_s_per_step": round(v / n, 4)
+               for k, v in self._budget.items()}
+        out["steps"] = n
+        out["total_s_per_step"] = round(sum(self._budget.values()) / n, 4)
+        if self._first_cycle_s is not None:
+            out["first_cycle_s"] = round(self._first_cycle_s, 1)
+        with open(os.path.join(self.save_dir, "stage_budget.json"), "w") as f:
+            json.dump(out, f, indent=1)
+        print("stage budget:", json.dumps(out))
+
+    def _transfer(self, db):
+        """(the step's batch, the pinned host buffers its copies read).
+        On the card: tensors copied from pinned memory without blocking;
+        the buffers are kept until the step is drained."""
+        if self.device.type != "cuda":
+            return db, ()
+        pinned = tuple(torch.from_numpy(np.ascontiguousarray(v)).pin_memory()
+                       for v in db.values())
+        return ({k: p.to(self.device, non_blocking=True)
+                 for k, p in zip(db, pinned)}, pinned)
+
+    def _queue_scalars(self, scalars):
+        """Start the scalars' copy to the host behind the step that made
+        them: (values, the event that marks them ready or None)."""
+        values = torch.stack([v.detach().float().reshape(())
+                              for v in scalars.values()])
+        if not values.is_cuda:
+            return values, None
+        host = torch.empty(values.shape, dtype=values.dtype, pin_memory=True)
+        host.copy_(values, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record()
+        return host, event
 
     def train(self):
         cfg = self.cfg
-        for epoch in range(cfg.num_pretrain_epochs, cfg.num_epochs):
-            for epoch_iter, batch in enumerate(self.dataloader):
+        visualizer = Visualizer(cfg)
+        total_steps = int(self.state.step)       # 0 or resumed
+        dispatched = total_steps
+        smoothed = 0.0
+        self._pending = None
+        if cfg.num_iter and total_steps >= cfg.num_iter:
+            # resumed at or past the target: the run is done; do not train
+            # on through num_epochs over the finished checkpoint
+            print(green(f"Run already complete at step {total_steps} "
+                        f"(num_iter={cfg.num_iter}); nothing to do."))
+            return self.state
+
+        # resume into the right epoch: skip the epochs the restored step
+        # completed, and advance the loader's epoch counter so that its
+        # shuffles are not replayed from epoch 0
+        done_epochs = 0
+        try:
+            spe = len(self.dataloader)
+            if spe > 0:
+                done_epochs = total_steps // spe
+        except TypeError:
+            pass  # sized loaders only; unsized ones restart at epoch 0
+        if done_epochs and hasattr(self.dataloader, "_epoch"):
+            self.dataloader._epoch = done_epochs
+
+        loop_start = t_mark = time.perf_counter()
+        for epoch in range(cfg.num_pretrain_epochs + done_epochs,
+                           cfg.num_epochs):
+            epoch_iter = 0
+            for batch in self.dataloader:
+                t0 = time.perf_counter()
+                self._budget["loader"] += t0 - t_mark
                 db = prepare_batch(batch, cfg.use_scops, cfg.use_texture)
+                # the lag holds while batch shapes are stable
                 cur_real = db["real_imgs"]
                 if (self._lagged_real is not None
                         and self._lagged_real.shape == cur_real.shape):
                     db["real_imgs"] = self._lagged_real
                 self._lagged_real = cur_real
-                start = time.perf_counter()
+                t1 = time.perf_counter()
+                self._budget["prep"] += t1 - t0
+                db, pinned = self._transfer(db)
+                t2 = time.perf_counter()
+                self._budget["transfer"] += t2 - t1
+
+                start = time.time()
                 self.state, scalars = self.step_fn(
                     self.state, db, *self.extra_step_args(epoch))
-                values = torch.stack(list(scalars.values())).cpu().tolist()
-                sc = dict(zip(scalars, values))
-                sc["iter_time"] = time.perf_counter() - start
-                self.history.append(sc)
-                if cfg.print_scalars and self.state.step % cfg.print_freq == 0:
-                    print(f"epoch {epoch} iter {epoch_iter + 1}: " + ", ".join(
-                        f"{k} {v:.4f}" for k, v in sc.items()), flush=True)
-                if cfg.num_iter and self.state.step >= cfg.num_iter:
+                queued = self._queue_scalars(scalars)
+                self._budget["dispatch"] += time.perf_counter() - t2
+                dispatched += 1
+                # drain the PREVIOUS step's scalars now that this one is
+                # queued: the logged values are the same, one step late
+                total_steps, smoothed = self._drain(total_steps, smoothed,
+                                                    visualizer)
+                self._pending = (list(scalars), queued, start, epoch,
+                                 epoch_iter, pinned)
+                epoch_iter += 1
+                self._budget_n += 1
+                if self._budget_n == 2 and self._first_cycle_s is None:
+                    # the first two cycles ~ warm-up (cuDNN, allocator)
+                    self._first_cycle_s = time.perf_counter() - loop_start
+                t_mark = time.perf_counter()
+
+                if cfg.num_iter and dispatched >= cfg.num_iter:
+                    total_steps, smoothed = self._drain(
+                        total_steps, smoothed, visualizer)
+                    self.save("latest")
                     return self.state
-            # the epoch's last step has finished: its scalars are on the
-            # host
+
             if self.on_epoch_end is not None:
+                # drain first: on_epoch_end may change the state (stage
+                # 1's template update)
+                total_steps, smoothed = self._drain(total_steps, smoothed,
+                                                    visualizer)
+                t0 = time.perf_counter()
                 self.state = self.on_epoch_end(self.state, epoch) or self.state
+                self._budget.setdefault("epoch_end", 0.0)
+                self._budget["epoch_end"] += time.perf_counter() - t0
+                t_mark = time.perf_counter()
+
+            if (epoch + 1) % cfg.save_epoch_freq == 0:
+                total_steps, smoothed = self._drain(total_steps, smoothed,
+                                                    visualizer)
+                self.save("latest")
+                self.save(epoch + 1)
+
+        total_steps, smoothed = self._drain(total_steps, smoothed, visualizer)
+        self.save("latest")
         return self.state
+
+    def _drain(self, total_steps, smoothed, visualizer):
+        """Read back the pending step's scalars (waiting for that step
+        alone) and run the print and save cadences for it."""
+        if self._pending is None:
+            return total_steps, smoothed
+        cfg = self.cfg
+        names, (values, event), start, epoch, epoch_iter, _ = self._pending
+        self._pending = None
+        t0 = time.perf_counter()
+        if event is not None:
+            event.synchronize()
+        sc = dict(zip(names, values.tolist()))
+        self._budget["drain"] += time.perf_counter() - t0
+        sc["iter_time"] = time.time() - start
+        self.history.append(sc)
+        smoothed = smoothed * 0.99 + 0.01 * sc["total_loss"]
+        total_steps += 1
+
+        if cfg.print_scalars and total_steps % cfg.print_freq == 0:
+            visualizer.print_current_scalars(
+                epoch, epoch_iter + 1,
+                {"smoothed_total_loss": smoothed, **sc})
+
+        if total_steps % cfg.save_latest_freq == 0:
+            print(green(f"saving the model at epoch {epoch}, "
+                        f"iters {total_steps}"))
+            self.save("latest", export_pth=False)
+        return total_steps, smoothed
