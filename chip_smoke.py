@@ -10,10 +10,13 @@ cycle_soft_p2f), the stage-1 training slice (train_s1.run at full s1
 width, batch 64, 2 epochs of 3 batches with two template updates) and the
 stage handoff through files (avg_uv.run on stage 1's checkpoint,
 train_s2.run from that template on disk with an auto-resume, test_iou.run
-and test_kp.run on stage 2's checkpoint), checks that each path went
-through the kernels, and times kernels, plain versions, the training
-steps and the handoff's entry points. Every run writes into a fresh
-temporary directory.
+and test_kp.run on stage 2's checkpoint) and the synthetic category
+(generate_dataset through the forward kernel, its renders held against
+the plain version, CategoryLoader(device_data=True) against the host
+loader, train_s2.run, avg_uv.run, test_iou.run and test_kp.run fed by
+it), checks that each path went through the kernels, and times kernels,
+plain versions, the training steps and the handoff's entry points. Every
+run writes into a fresh temporary directory.
 
   python3 chip_smoke.py
 
@@ -63,7 +66,17 @@ S1_BATCHES = 3
 S1_EPOCHS = 2
 P2F_SLICE = 8            # images of the s1 renders the plain p2f and the
                          # plain backward take
-KP_PAIRS = 32            # test_kp's pairs in phase 13 (groups of 16)
+KP_PAIRS = 32            # test_kp's pairs in phases 13 and 14
+# phase 14, the synthetic category: samples generated (batches of
+# TRAIN_BATCH), images of each generator render held against the plain
+# version, the device loader's epochs held against the host loader's,
+# train_s2.run's steps on the device loader, and the bound on a device
+# loader batch's host-to-device copies
+GEN_N = 64
+GEN_SLICE = 4
+LOADER_EPOCHS = 2
+CAT_STEPS = 3
+HTOD_BATCH_LIMIT = 1 << 20
 
 RGBA_ATOL = 1e-3      # kernel vs plain: reductions run in another order
 AGGR_RTOL = 1e-4      # softmax (sum, max)
@@ -571,6 +584,247 @@ def handoff(dev, smi, template, s1_pth, s1loader, tcfg, tloader, cfg,
                 part_counts=counts, flow_std=flow_std,
                 resume_launches=list(s2b), iou_launches=iou_launches, kp=kp,
                 phase_s=handoff_s)
+
+
+def htod_bytes(events):
+    """Bytes of a torch.profiler trace's host-to-device copies."""
+    return sum(int(e.get("args", {}).get("bytes", 0)) for e in events
+               if e.get("cat") == "gpu_memcpy" and "HtoD" in e["name"])
+
+
+def category(dev, smi, template, tcfg, s1_pth):
+    """Phase 14: the synthetic category on the card. generate_dataset
+    (3 forward launches per batch, no backward), its first batch's three
+    renders recorded as the kernel receives them, GEN_SLICE images of
+    each held against the plain version, CategoryLoader(device_data=True)
+    against the host loader bit for bit, the host-to-device bytes per
+    batch of each (torch.profiler), then train_s2.run, avg_uv.run on
+    phase 10's checkpoint, test_iou.run and test_kp.run (cam) fed by the
+    category's loaders, each path's launches asserted. Returns the
+    readings."""
+    from umr_tpu_torch.data.synthetic_category import (
+        CategoryLoader, PairLoader, generate_dataset, make_pair_orders)
+    from umr_tpu_torch.experiments import avg_uv, test_iou, test_kp, train_s2
+    from umr_tpu_torch.experiments.profile_slice import trace_events
+    from umr_tpu_torch.experiments.raster_bench import (
+        render_bounds, render_fwd, step_renders, synthetic_semantic)
+    from umr_tpu_torch.experiments.synthetic_parity import (identity_pck,
+                                                            pair_keypoints)
+    from umr_tpu_torch.ops import raster_kernel
+    from umr_tpu_torch.ops.raster_bins import compute_raster_bins
+    from umr_tpu_torch.ops.rasterize import soft_rasterize
+    from umr_tpu_torch.training.trainer import prepare_batch, transfer
+
+    t_phase = time.perf_counter()
+    n_b = -(-GEN_N // TRAIN_BATCH)
+    stats = {}
+    raster_kernel.LAUNCHES = raster_kernel.BWD_LAUNCHES = 0
+    t0 = time.perf_counter()
+    data = generate_dataset(template, GEN_N, seed=0, image_size=IMAGE_SIZE,
+                            batch=TRAIN_BATCH, device=dev, stats=stats)
+    gen_s = time.perf_counter() - t0
+    gen = (raster_kernel.LAUNCHES, raster_kernel.BWD_LAUNCHES)
+    holes = [1.0 - f for f in stats["verts_inside"]]
+    cover = data["mask"].mean(axis=(1, 2))
+    print(f"generate_dataset: {GEN_N} samples in {n_b} batches of "
+          f"{TRAIN_BATCH} at {IMAGE_SIZE}^2 in {gen_s:.2f} s (renders and "
+          f"hole check per batch, s: "
+          + ", ".join(f"{t:.3f}" for t in stats["render_s"])
+          + "); share of projected vertices outside the masks per batch: "
+          + ", ".join(f"{h:.4f}" for h in holes)
+          + f" (bar <= {1 - 0.95:.2f}); mask coverage {cover.min():.3f}.."
+          f"{cover.max():.3f}; raster_fwd launches {gen[0]}, raster_bwd "
+          f"{gen[1]} (expected 3 and 0 per batch) [{smi}]", flush=True)
+    assert gen == (3 * n_b, 0), gen
+    for k in ("img", "mask", "part_prob", "dts_barrier", "kp"):
+        assert np.isfinite(data[k]).all(), k
+    assert data["part_prob"].shape == (GEN_N, IMAGE_SIZE, IMAGE_SIZE, 5)
+    assert ((cover > 0.02) & (cover < 0.8)).all(), cover
+
+    # the first batch again, its renders recorded as the kernel gets them
+    with step_renders(("image", "part A", "part B")) as gr:
+        first = generate_dataset(template, TRAIN_BATCH, seed=0,
+                                 image_size=IMAGE_SIZE, batch=TRAIN_BATCH,
+                                 device=dev)
+    for k in ("img", "mask", "part_prob", "kp"):
+        assert np.array_equal(first[k], data[k][:TRAIN_BATCH]), k
+    renders = {}
+    for label, r in gr.items():
+        kw = r["kw"]
+        S = kw["image_size"]
+        with torch.no_grad():
+            full = compute_raster_bins(
+                r["fv"], S, raster_kernel.TILE_SIZE, kw["sigma_val"],
+                kw["dist_eps"], r["fv"].shape[1], raster_kernel.MAX_COVER,
+                r["fv"].shape[1] * 16 + 8 * (S // 32) ** 2)
+        most = int(torch.diff(full[1], dim=1).max())
+        ms_k, _ = cuda_time(lambda: render_fwd(r), 10)
+        counts, fb, _ = render_bounds(r)
+        sl = dict(r, fv=r["fv"][:GEN_SLICE].contiguous(),
+                  tex=r["tex"][:GEN_SLICE].contiguous(),
+                  bins=tuple(b[:GEN_SLICE].contiguous() for b in r["bins"]))
+        ms_s, out = cuda_time(lambda: render_fwd(sl), 10)
+        plain_kw = {k: kw[k] for k in (
+            "image_size", "background_color", "sigma_val", "dist_eps",
+            "gamma_val", "aggr_func_rgb")}
+        with torch.no_grad():
+            ms_p, ref = cuda_time(lambda: soft_rasterize(
+                sl["fv"], sl["tex"], **plain_kw), 1, warmup=0)
+        got = compare(
+            f"generator {label} render: {GEN_SLICE} images on the "
+            f"generator's own bins (cap {kw['mf_cap']}, fullest tile "
+            f"{most} faces)", out, ref, False)
+        renders[label] = dict(got, ms=ms_k, bound_ms=fb[0], bound_by=fb[1],
+                              slice_ms=ms_s, slice_plain_ms=ms_p,
+                              fullest_tile=most, counts=counts)
+        print(f"generator {label} render, {TRAIN_BATCH} images at {S}^2: "
+              f"forward kernel {ms_k:.3f} ms (bound {fb[0]:.3f} ms, "
+              f"{fb[1]}; slots, pairs in bbox, past the threshold, in "
+              f"depth: {counts}); {GEN_SLICE}-image slice: kernel "
+              f"{ms_s:.3f} ms, plain {ms_p:.1f} ms [{smi}]", flush=True)
+        assert most <= kw["mf_cap"], (most, kw["mf_cap"])
+    del gr, first
+
+    # the device loader against the host loader, bit for bit
+    kw = dict(batch_size=TRAIN_BATCH, seed=20, use_scops=True)
+    host = CategoryLoader(data, **kw)
+    devl = CategoryLoader(data, device_data=True, device=dev, **kw)
+    t0 = time.perf_counter()
+    devl._device_arrays()
+    torch.cuda.synchronize()
+    stage_s = time.perf_counter() - t0
+    staged_mb = sum(v.numel() * v.element_size()
+                    for v in devl._dev.values()) / 1e6
+    n_cmp = 0
+    for _ in range(LOADER_EPOCHS):
+        for bh, bd in zip(host, devl):
+            assert set(bh) == set(bd)
+            for k, v in bh.items():
+                got = bd[k]
+                if torch.is_tensor(got):
+                    assert got.device == dev, (k, got.device)
+                    got = got.cpu().numpy()
+                assert got.dtype == v.dtype and np.array_equal(got, v), k
+            n_cmp += 1
+    assert n_cmp == LOADER_EPOCHS * len(host) and devl._epoch == LOADER_EPOCHS
+
+    def feed(loader):
+        def run():
+            for b in loader:
+                transfer(prepare_batch(b), dev)
+            torch.cuda.synchronize()
+        return run
+
+    htod = {}
+    for name, device_data in (("device", True), ("host", False)):
+        ld = CategoryLoader(data, device_data=device_data, device=dev, **kw)
+        events, _ = trace_events(feed(ld), 1)
+        htod[name] = htod_bytes(events) / len(ld)
+    print(f"CategoryLoader(device_data=True): {staged_mb:.1f} MB staged in "
+          f"{stage_s:.3f} s; {n_cmp} batches over {LOADER_EPOCHS} epochs "
+          f"equal to the host loader's bit for bit; host-to-device bytes "
+          f"per batch through prepare_batch and the trainer's transfer "
+          f"(profiler): device loader {htod['device']:.0f}, host loader "
+          f"{htod['host']:.0f} (device loader < {HTOD_BATCH_LIMIT})",
+          flush=True)
+    assert htod["device"] < HTOD_BATCH_LIMIT, htod
+    assert htod["host"] > HTOD_BATCH_LIMIT, htod   # the trace sees bytes
+
+    seg, pvi = synthetic_semantic(template)
+    ccfg = tcfg.replace(num_iter=CAT_STEPS, checkpoint_dir=tempfile.mkdtemp(),
+                        name="s2", use_scops=True)
+    loader2 = CategoryLoader(data, TRAIN_BATCH, seed=20, use_scops=True,
+                             device_data=True, device=dev)
+    raster_kernel.LAUNCHES = raster_kernel.BWD_LAUNCHES = 0
+    t0 = time.perf_counter()
+    trainer = train_s2.run(ccfg, loader2, device=dev,
+                           semantic=(None, seg, pvi))
+    torch.cuda.synchronize()
+    s2_s = time.perf_counter() - t0
+    s2 = (raster_kernel.LAUNCHES, raster_kernel.BWD_LAUNCHES)
+    s2_dir = os.path.join(ccfg.checkpoint_dir, ccfg.name)
+    budget = json.load(open(os.path.join(s2_dir, "stage_budget.json")))
+    budget7 = json.load(open(os.path.join(tcfg.checkpoint_dir, tcfg.name,
+                                          "stage_budget.json")))
+    print(f"train_s2.run on the device loader: {trainer.state.step} steps "
+          f"in {s2_s:.2f} s incl. set-up; launches {s2} (expected 3 and 2 "
+          f"per step); per step (stage_budget.json, s): prep "
+          f"{budget['prep_s_per_step']}, transfer "
+          f"{budget['transfer_s_per_step']}, loader "
+          f"{budget['loader_s_per_step']} (phase 7, host batches: prep "
+          f"{budget7['prep_s_per_step']}, transfer "
+          f"{budget7['transfer_s_per_step']}, loader "
+          f"{budget7['loader_s_per_step']}) [{smi}]", flush=True)
+    assert trainer.state.step == len(trainer.history) == CAT_STEPS
+    assert s2 == (3 * CAT_STEPS, 2 * CAT_STEPS), s2
+    for sc in trainer.history:
+        assert all(math.isfinite(v) for v in sc.values()), sc
+    del trainer
+    torch.cuda.empty_cache()
+
+    ucfg = tcfg.replace(model_path=s1_pth, out_dir=tempfile.mkdtemp())
+    loader_uv = CategoryLoader(data, TRAIN_BATCH, shuffle=False,
+                               use_scops=True, device_data=True, device=dev)
+    raster_kernel.LAUNCHES = raster_kernel.BWD_LAUNCHES = 0
+    uv_s, pass1_s, split = timed_avg_uv(avg_uv, ucfg, loader_uv, dev)
+    uv = (raster_kernel.LAUNCHES, raster_kernel.BWD_LAUNCHES)
+    steady = {k: 1e3 * float(np.median(v[:-1] if k == "readback" else v[1:]))
+              for k, v in split.items()}
+    # the read-back part also holds the loader's next batch: its part
+    # points, sampled on the host
+    print(f"avg_uv.run on the device loader: {len(loader_uv)} batches of "
+          f"{TRAIN_BATCH} in {uv_s:.2f} s, pass 1 {pass1_s:.3f} s; per "
+          f"batch after the first (ms; read-back, with the loader's next "
+          f"batch and its host part points: but the last): "
+          + ", ".join(f"{k} {t:.1f}" for k, t in steady.items())
+          + f"; launches {uv} (expected {len(loader_uv)} and 0) [{smi}]",
+          flush=True)
+    assert uv == (len(loader_uv), 0), uv
+
+    s2_pth = os.path.join(s2_dir, "pred_net_latest.pth")
+    test_loader = CategoryLoader(data, TRAIN_BATCH, shuffle=False,
+                                 use_scops=False, drop_last=False,
+                                 device_data=True, device=dev)
+    raster_kernel.LAUNCHES = 0
+    t0 = time.perf_counter()
+    iou = test_iou.run(ccfg.replace(model_path=s2_pth), test_loader,
+                       device=dev)
+    torch.cuda.synchronize()
+    iou_s = time.perf_counter() - t0
+    iou_launches = raster_kernel.LAUNCHES
+    o1, o2 = make_pair_orders(GEN_N, KP_PAIRS, seed=303)
+    raster_kernel.LAUNCHES = raster_kernel.BWD_LAUNCHES = 0
+    t0 = time.perf_counter()
+    pck = test_kp.run(ccfg.replace(model_path=s2_pth, number_pairs=KP_PAIRS,
+                                   mode="cam"),
+                      (PairLoader(data, o1), PairLoader(data, o2)),
+                      device=dev)
+    torch.cuda.synchronize()
+    kp_s = time.perf_counter() - t0
+    kp = (raster_kernel.LAUNCHES, raster_kernel.BWD_LAUNCHES)
+    ident = identity_pck(pair_keypoints(data, o1, o2))
+    groups = -(-KP_PAIRS // 16)
+    print(f"test_iou.run on the category's device loader: IoU {iou:.4f} "
+          f"over {len(test_loader)} batches in {iou_s:.2f} s, launches "
+          f"{iou_launches} (expected {len(test_loader)}); test_kp.run cam on "
+          f"{KP_PAIRS} PairLoader pairs: PCK@0.1 {pck[0]:.4f}, @0.15 "
+          f"{pck[1]:.4f} (identity {ident[0]:.4f}, {ident[1]:.4f}; a "
+          f"{CAT_STEPS}-step model) in {kp_s:.2f} s, launches {kp} "
+          f"(expected ({groups}, 0))", flush=True)
+    assert math.isfinite(iou) and 0.0 <= iou <= 1.0
+    assert iou_launches == len(test_loader)
+    assert kp == (groups, 0), kp
+    assert 0.0 <= pck[0] <= pck[1] <= 1.0
+    phase_s = time.perf_counter() - t_phase
+    print(f"phase 14: {phase_s:.1f} s [{smi}]", flush=True)
+    return dict(gen_launches=gen[0], gen_s=gen_s,
+                render_s=stats["render_s"], outside_share=holes,
+                renders=renders, staged_mb=staged_mb,
+                htod_bytes_per_batch=htod, s2_launches=list(s2),
+                s2_budget=budget, s2_budget_phase7=budget7,
+                avg_uv_s=uv_s, avg_uv_steady_ms=steady, iou=iou,
+                iou_launches=iou_launches, kp_cam=list(pck),
+                kp_launches=kp[0], phase_s=phase_s)
 
 
 def main():
@@ -1317,10 +1571,17 @@ def main():
     handoff_rec = handoff(dev, smi, template, s1_pth, s1loader, tcfg,
                           tloader, cfg, loader)
 
+    phase("14. the synthetic category on the card: generate_dataset (64 "
+          "samples, batch 16, 256^2 with 512^2 AA renders), the device "
+          "loader, train_s2.run, avg_uv, test_iou and test_kp on it")
+    category_rec = category(dev, smi, template, tcfg, s1_pth)
+    gen_r = category_rec["renders"]
+
     record = {"kernels": [{
         "name": "raster_fwd", "route": "cuda", "source": KERNEL_SRC,
         "replaces": TPU_KERNEL, "launches": train_fwd,
-        "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+        "max_abs_err": max(max_err, *(v["rgba"] for v in gen_r.values())),
+        "ms": ms, "plain_ms": plain_ms,
         "bound_ms": fwd_bound, "bound_by": fwd_by, "library_ms": None,
         "ms_includes_binning": True, "binning_ms": ms_bins,
         "kernel_ms": ms_kernel, "inference_launches": launches,
@@ -1348,6 +1609,13 @@ def main():
         "s1_idle_share": s1_trace["idle"], "s1_copy_ms": s1_trace["copy_ms"],
         "cycle_soft_p2f_launches": list(cyc_launches),
         "handoff": handoff_rec,
+        "generator_launches": category_rec["gen_launches"],
+        "generator_ms": {k: v["ms"] for k, v in gen_r.items()},
+        "generator_bound_ms": {k: v["bound_ms"] for k, v in gen_r.items()},
+        "generator_slice_ms": {k: v["slice_ms"] for k, v in gen_r.items()},
+        "generator_slice_plain_ms": {k: v["slice_plain_ms"]
+                                     for k, v in gen_r.items()},
+        "category": category_rec,
         "s2_hard_ms": shapes["hard"]["fwd_ms"],
         "s2_hard_bound_ms": shapes["hard"]["fwd_bound"][0],
         "s1_hard_ms": s1_shapes["s1 hard"]["fwd_ms"],

@@ -1,5 +1,6 @@
-"""The port (the inference slice, a training step of each stage and the
-stage handoff through files: avg_uv, test_kp) runs with jax, flax, optax,
+"""The port (the inference slice, a training step of each stage, the
+stage handoff through files: avg_uv, test_kp, and the synthetic
+category with its loader and curriculum tools) runs with jax, flax, optax,
 orbax, absl, imageio, cv2 and the JAX package umr_tpu unavailable, and no
 file of it (nor chip_smoke.py) imports them: the machine with the card
 has none of them but umr_tpu, whose __init__ imports jax wherever jax is
@@ -75,6 +76,14 @@ cfg = Config(image_size=32, img_size=32, subdivide=2, tex_size=2,
 pairs = [[synthetic_batch(rng, 1, 32) for _ in range(2)] for _ in range(2)]
 pck = test_kp.run(cfg, pairs, device="cpu")
 assert 0.0 <= pck[0] <= pck[1] <= 1.0
+from umr_tpu_torch.data.synthetic_category import (CategoryLoader,
+                                                   generate_dataset)
+from umr_tpu_torch.experiments import (eval_kp_pairs, extend_s2,
+                                       synthetic_parity)
+data = generate_dataset(build_template(1, 1, 2), 2, image_size=32, batch=2,
+                        device="cpu")
+batch = next(iter(CategoryLoader(data, 2, device_data=True, device="cpu")))
+assert batch["img"].shape == (2, 32, 32, 3) and "head_points" in batch
 loaded = [k for k, v in sys.modules.items()
           if v is not None and k.split(".")[0] in %(blocked)r]
 assert not loaded, loaded

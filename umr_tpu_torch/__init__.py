@@ -11,13 +11,17 @@ Port module -> JAX counterpart (umr_tpu/...):
                              model scope and ResNet input normalisation
   mesh.py                    mesh/ (icosphere, symmetry, uv, template with
                              laplacian and flatten_idx)
-  data.py                    data/synthetic.py::synthetic_batch, with the
+  data/synthetic.py          data/synthetic.py::synthetic_batch, with the
                              barrier of utils/image.py::compute_dt_barrier
+  data/synthetic_category.py data/synthetic_category.py (the bird category
+                             rendered through the port's renderer;
+                             CategoryLoader with device_data, PairLoader)
   obj_io.py                  utils/obj_io.py::save_obj (surface and vertex
                              textures; the atlas through png.py)
   png.py                     the 8-bit PNG files imageio reads and writes
                              (zlib only: the card's machine has no imageio)
-  image.py                   utils/image.py::color_map, colorize
+  image.py                   utils/image.py::color_map, colorize,
+                             prob2center, sample_prob
   visualizer.py              utils/visualizer.py (green, red, Visualizer,
                              save_image_grid)
   ops/quaternion.py          ops/quaternion.py (incl. ang2quat, rotate_cam)
@@ -58,6 +62,9 @@ Port module -> JAX counterpart (umr_tpu/...):
   experiments/train_s2.py    experiments/train_s2.py (load_semantic_template)
   experiments/avg_uv.py      experiments/avg_uv.py
   experiments/test_kp.py     experiments/test_kp.py (no --visualize)
+  experiments/synthetic_parity.py, extend_s2.py, eval_kp_pairs.py
+                             tools/synthetic_parity.py, extend_s2.py,
+                             eval_kp_pairs.py (the synthetic curriculum)
   cli.py                     config.py::define_flags (argparse, same names)
 
 Parity traps the port reproduces:

@@ -15,6 +15,7 @@ device rule (resolve_device), the model scope the port supports
 from __future__ import annotations
 
 import dataclasses
+import functools
 from dataclasses import dataclass
 
 import numpy as np
@@ -184,6 +185,16 @@ def check_supported(cfg: Config, stage=2):
 
 
 def normalize_images(imgs):
-    """Images [..., 3] in [0, 1] (numpy float32) -> the encoder's input,
-    normalised with the ImageNet mean and std."""
+    """Images [..., 3] in [0, 1] -> the encoder's input, normalised with
+    the ImageNet mean and std: numpy float32 on the host, or a float32
+    tensor on its own device (the constants cached there)."""
+    if torch.is_tensor(imgs):
+        mean, std = _resnet_consts(imgs.device)
+        return (imgs - mean) / std
     return (imgs - RESNET_MEAN) / RESNET_STD
+
+
+@functools.lru_cache(maxsize=None)
+def _resnet_consts(device):
+    return (torch.as_tensor(RESNET_MEAN, device=device),
+            torch.as_tensor(RESNET_STD, device=device))

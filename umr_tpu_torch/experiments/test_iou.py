@@ -32,9 +32,12 @@ def build_eval_model(cfg: Config, template, device=None):
 
 
 def prepare_batch(batch):
-    """Host batch dict -> (normalised input images, masks), numpy."""
-    return (normalize_images(batch["img"].astype(np.float32)),
-            batch["mask"].astype(np.float32))
+    """Batch dict -> (normalised input images, masks): numpy, or float32
+    tensors on the device the batch's lie on (a device loader's)."""
+    imgs, mask = batch["img"], batch["mask"]
+    if torch.is_tensor(imgs):
+        return normalize_images(imgs.float()), mask.float()
+    return normalize_images(imgs.astype(np.float32)), mask.astype(np.float32)
 
 
 @torch.no_grad()
@@ -52,7 +55,7 @@ def predict_masks(model, renderer, faces, batch_img, eps=None,
 
 def run(cfg: Config, dataloader=None, device=None):
     """Mean mask IoU over the batches of `dataloader` (dicts with 'img'
-    [B,H,W,3] in [0,1] and 'mask' [B,H,W])."""
+    [B,H,W,3] in [0,1] and 'mask' [B,H,W], numpy or tensors)."""
     if dataloader is None:
         raise NotImplementedError(
             "pass a dataloader: the CUB loader is not ported yet")
@@ -73,11 +76,12 @@ def run(cfg: Config, dataloader=None, device=None):
         pred_mask, _ = predict_masks(
             model, renderer, faces,
             torch.as_tensor(input_img, device=device), generator=generator)
-        mask_pred = pred_mask.cpu().numpy().reshape(pred_mask.shape[0], -1)
-        mask_gt = mask_gt.reshape(mask_gt.shape[0], -1)
+        mask_pred = pred_mask.reshape(pred_mask.shape[0], -1)
+        mask_gt = torch.as_tensor(mask_gt, device=device).reshape(
+            mask_pred.shape)
         inter = (mask_gt * mask_pred).sum(1)
         union = (mask_gt + mask_pred - mask_gt * mask_pred).sum(1)
-        ious.append(inter / union)
+        ious.append((inter / union).cpu().numpy())
     iou = float(np.concatenate(ious).mean())
     print("Average mask IoU: {:.4f}.".format(iou))
     return iou

@@ -163,7 +163,10 @@ def _make_init_fn(cfg: Config, model, disc, lpips, device):
         if os.path.exists(trunk):
             sd = load_resnet18_npz(trunk, os.path.join(
                 weights_dir, "resnet18_stats.npz"))
-            model.load_state_dict(sd, strict=False)
+            res = model.load_state_dict(sd, strict=False)
+            assert not res.unexpected_keys, res.unexpected_keys
+            print(f"encoder trunk: {len(sd)} tensors from {trunk} "
+                  f"({min(sd)} .. {max(sd)})")
         else:
             warnings.warn(f"{trunk} not found: the encoder trunk is "
                           "random-init (the reference's is ImageNet-"

@@ -27,25 +27,53 @@ BUDGET_KEYS = ("loader", "prep", "transfer", "dispatch", "drain", "vis",
                "save")
 
 
+def _f32(x):
+    """A numpy array as float32 (a copy), or a tensor as float32 on its
+    device."""
+    return x.float() if torch.is_tensor(x) else x.astype(np.float32)
+
+
 def prepare_batch(batch, use_scops=True, use_texture=True):
-    """Host batch dict -> the step's input dict (numpy): normalised input
-    images, masks, masked "real" images, and the barrier and part fields
-    the losses read."""
-    imgs = batch["img"].astype(np.float32)
+    """Batch dict -> the step's input dict: normalised input images,
+    masks, masked "real" images, and the barrier and part fields the
+    losses read. Numpy entries give numpy; entries that are tensors (a
+    device loader's batch) stay on their device and are normalised
+    there."""
+    imgs = _f32(batch["img"])
+    mask = _f32(batch["mask"])
     out = {
         "img": imgs,
         "input_img": normalize_images(imgs),
-        "mask": batch["mask"].astype(np.float32),
-        "real_imgs": imgs * batch["mask"][..., None].astype(np.float32),
+        "mask": mask,
+        "real_imgs": imgs * mask[..., None],
     }
     if use_texture and "dts_barrier" in batch:
-        out["dts_barrier"] = batch["dts_barrier"].astype(np.float32)
+        out["dts_barrier"] = _f32(batch["dts_barrier"])
     if use_scops and "part_prob" in batch:
-        out["part_prob"] = batch["part_prob"].astype(np.float32)
+        out["part_prob"] = _f32(batch["part_prob"])
         for k in ("head_points", "belly_points", "neck_points",
                   "back_points"):
-            out[k] = batch[k].astype(np.float32)
+            out[k] = _f32(batch[k])
     return out
+
+
+def transfer(db, device):
+    """(the step's batch on `device`, the pinned host buffers its copies
+    read). On the card, numpy entries are copied from pinned memory
+    without blocking (the buffers must live until the step is drained),
+    tensors already there are taken as they are and tensors elsewhere
+    moved with .to; off the card the batch is returned as it is."""
+    if device.type != "cuda":
+        return db, ()
+    out, pinned = {}, []
+    for k, v in db.items():
+        if torch.is_tensor(v):
+            out[k] = v.to(device)
+        else:
+            pinned.append(torch.from_numpy(np.ascontiguousarray(v))
+                          .pin_memory())
+            out[k] = pinned[-1].to(device, non_blocking=True)
+    return out, tuple(pinned)
 
 
 class Trainer:
@@ -55,11 +83,12 @@ class Trainer:
     return a new state (stage 1's template update). state is a
     training/steps.py::TrainState.
 
-    When the model lies on the card, the trainer copies each batch there
-    from pinned host memory without blocking, and reads a step's scalars
+    When the model lies on the card, the trainer copies each batch's host
+    arrays there from pinned memory without blocking (a device loader's
+    tensors are not copied again; transfer()), and reads a step's scalars
     back only after it has dispatched the next step (their copy to the
     host is queued behind the step that made them), so host work can
-    overlap the card's. On the CPU the step takes the numpy batch.
+    overlap the card's. On the CPU the step takes the batch as it comes.
 
     history holds each step's scalars (as floats) and iter_time, its wall
     time from dispatch to the drain of its scalars."""
@@ -137,17 +166,6 @@ class Trainer:
             json.dump(out, f, indent=1)
         print("stage budget:", json.dumps(out))
 
-    def _transfer(self, db):
-        """(the step's batch, the pinned host buffers its copies read).
-        On the card: tensors copied from pinned memory without blocking;
-        the buffers are kept until the step is drained."""
-        if self.device.type != "cuda":
-            return db, ()
-        pinned = tuple(torch.from_numpy(np.ascontiguousarray(v)).pin_memory()
-                       for v in db.values())
-        return ({k: p.to(self.device, non_blocking=True)
-                 for k, p in zip(db, pinned)}, pinned)
-
     def _queue_scalars(self, scalars):
         """Start the scalars' copy to the host behind the step that made
         them: (values, the event that marks them ready or None)."""
@@ -204,7 +222,7 @@ class Trainer:
                 self._lagged_real = cur_real
                 t1 = time.perf_counter()
                 self._budget["prep"] += t1 - t0
-                db, pinned = self._transfer(db)
+                db, pinned = transfer(db, self.device)
                 t2 = time.perf_counter()
                 self._budget["transfer"] += t2 - t1
 
