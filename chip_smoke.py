@@ -17,7 +17,11 @@ loader, train_s2.run, avg_uv.run, test_iou.run and test_kp.run fed by
 it) and the CUB path from files (a CUB-layout fixture written from the
 category and the committed JPEGs decoded by nvJPEG, the threaded loader's
 host split, then train_s1, avg_uv, train_s2, test_iou and test_kp with no
-loader passed, with the trainers' visuals and --visualize), checks that
+loader passed, with the trainers' visuals and --visualize) and the
+training flag variants (each s2 and s1 variant's step: bf16, without
+texture, without the GAN, az_ele_quat; the entry points under --bf16;
+test_iou on a one-camera, untextured model; the kernels at the
+variants' new shapes against the plain versions), checks that
 each path went through the kernels, and times kernels,
 plain versions, the training steps and the handoff's entry points. Every
 run writes into a fresh temporary directory.
@@ -1274,6 +1278,239 @@ def cub_path(dev, smi, template):
     return rec
 
 
+# phase 16, the training flag variants: each variant's launches per step
+# (forward, of them with p2f, backward), as training/steps.py lists them
+S2_VARIANTS = (("f32", {}, (3, 0, 2)), ("bf16", {"bf16": True}, (3, 0, 2)),
+               ("no texture", {"use_texture": False}, (4, 0, 4)),
+               ("no GAN", {"use_gan": False}, (4, 0, 3)),
+               ("no texture, no GAN", {"use_texture": False,
+                                       "use_gan": False}, (3, 0, 3)),
+               ("az_ele_quat", {"az_ele_quat": True}, (3, 0, 2)))
+S1_VARIANTS = (("f32", {}, (3, 1, 2)), ("bf16", {"bf16": True}, (3, 1, 2)),
+               ("no GAN", {"use_gan": False}, (2, 1, 1)),
+               ("no texture", {"use_texture": False}, (2, 0, 2)))
+VARIANT_STEPS = 3        # the entry points' steps under --bf16
+
+
+def launches():
+    """The kernel wrappers' counts: (forward, of them with p2f, backward)."""
+    from umr_tpu_torch.ops import raster_kernel
+
+    return (raster_kernel.LAUNCHES, raster_kernel.P2F_LAUNCHES,
+            raster_kernel.BWD_LAUNCHES)
+
+
+def zero_launches():
+    from umr_tpu_torch.ops import raster_kernel
+
+    raster_kernel.LAUNCHES = raster_kernel.BWD_LAUNCHES = 0
+    raster_kernel.P2F_LAUNCHES = 0
+
+
+def variant_step(label, step_fn, state, batch, args, expect, smi,
+                 prefix=None):
+    """One counted step of a built variant (the renders' input dtypes
+    recorded at the kernels' Function), then TIMED_STEPS steps after 1
+    warm-up on the same batch, timed with CUDA events, and one more whose
+    loss (before its update) must lie below the first step's; with a
+    profiler range prefix ("s2." or "s1."), then a trace of the step's
+    device time by range. Returns the readings."""
+    from umr_tpu_torch.ops import raster_kernel
+
+    function = raster_kernel._Raster
+    dtypes = set()
+
+    class Recording:
+        @staticmethod
+        def apply(fv, tex, al_fids, astarts, kw):
+            dtypes.add((fv.dtype, tex.dtype))
+            return function.apply(fv, tex, al_fids, astarts, kw)
+
+    raster_kernel._Raster = Recording
+    try:
+        zero_launches()
+        state, sc = step_fn(state, batch, *args)
+        torch.cuda.synchronize()
+        got = launches()
+    finally:
+        raster_kernel._Raster = function
+    first = {k: v.item() for k, v in sc.items()}
+    assert got == expect, (label, got, expect)
+    assert dtypes == {(torch.float32, torch.float32)}, (label, dtypes)
+    assert all(math.isfinite(v) for v in first.values()), (label, first)
+    ms, times, state = timed_steps(step_fn, state, [batch], TIMED_STEPS,
+                                   *args)
+    state, sc = step_fn(state, batch, *args)
+    last = sc["total_loss"].item()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    msg = (f"{label}: raster_fwd launches {got[0]} ({got[1]} with p2f), "
+           f"raster_bwd launches {got[2]} per step (expected {expect}); "
+           f"renders take {sorted(str(d) for d in dtypes)}; median "
+           f"{ms:.2f} ms over {TIMED_STEPS} steps after 1 warm-up (min "
+           f"{min(times):.2f}, max {max(times):.2f}); peak device memory "
+           f"{peak:.2f} GB; total_loss on the batch {first['total_loss']:.4f}"
+           f" at step 1, {last:.4f} after {TIMED_STEPS + 2} updates "
+           f"[{smi}]")
+    print(msg, flush=True)
+    assert math.isfinite(last) and last < first["total_loss"], msg
+    rec = dict(launches=list(got), ms=ms, times=times, peak_gb=peak,
+               first_total=first["total_loss"], last_total=last,
+               scalars=first)
+    if prefix:
+        box = [state]
+
+        def one_step():
+            box[0], _ = step_fn(box[0], batch, *args)
+
+        trace = trace_split(one_step, prefix, ms, smi, label)
+        rec.update(split_ms=trace["split"], busy_ms=trace["busy_ms"],
+                   idle_share=trace["idle"])
+    return rec
+
+
+def flag_variants(dev, smi, template, tcfg, tloader, seg, pvi, part_loss,
+                  s1cfg, s1loader, iou_cfg, iou_loader, checks):
+    """Phase 16, the training flag variants: each s2 variant at batch 16
+    and each s1 variant at batch 64, full width (launch counts, float32
+    into every render, finite scalars, a falling loss, step time, peak
+    memory); train_s2.run and train_s1.run under --bf16 through the entry
+    points; test_iou.run on a one-camera, untextured checkpoint; the new
+    kernel shapes (the mask-only fold, the T2=1 GAN view, the unmerged
+    part renders, stage 1's mask-only seen render) against the plain
+    versions on 8-image slices. Returns the readings."""
+    from umr_tpu_torch.cli import parse_config
+    from umr_tpu_torch.experiments import test_iou, train_s1, train_s2
+    from umr_tpu_torch.experiments.raster_bench import step_renders
+    from umr_tpu_torch.models import MeshNet, init_weights
+    from umr_tpu_torch.training.steps import build_s1_step, build_s2_step
+    from umr_tpu_torch.training.trainer import prepare_batch
+
+    t_phase = time.perf_counter()
+    rec = {"s2": {}, "s1": {}}
+    for stage, variants, base, data in (
+            ("s2", S2_VARIANTS, tcfg, tloader[0]),
+            ("s1", S1_VARIANTS, s1cfg, s1loader[0])):
+        for label, flags, expect in variants:
+            cfg = base.replace(checkpoint_dir=tempfile.mkdtemp(), **flags)
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            if stage == "s2":
+                _, _, _, init_fn, step_fn = build_s2_step(
+                    cfg, template, part_loss, pvi, dev)
+                args = ()
+            else:
+                _, _, _, init_fn, step_fn, _, _ = build_s1_step(
+                    cfg, template, dev)
+                args = (0.0,)
+            batch = prepare_batch(data, cfg.use_scops, cfg.use_texture)
+            rec[stage][label] = variant_step(
+                f"{stage} {label} step (batch {cfg.batch_size})", step_fn,
+                init_fn(cfg.seed), batch, args, expect, smi,
+                prefix=f"{stage}." if label in ("f32", "bf16", "az_ele_quat")
+                else None)
+        a, b = rec[stage]["bf16"], rec[stage]["f32"]
+        print(f"{stage} step, bf16 against f32: {a['ms']:.2f} against "
+              f"{b['ms']:.2f} ms ({b['ms'] / a['ms']:.3f}x), device busy "
+              f"{a['busy_ms']:.2f} against {b['busy_ms']:.2f} ms, peak "
+              f"{a['peak_gb']:.2f} against {b['peak_gb']:.2f} GB; TF32 off "
+              f"[{smi}]", flush=True)
+
+    # the new kernel shapes, from one untextured step of each stage as the
+    # kernels' route receives them, against the plain versions on
+    # FOLD_SLICE images spread over each render, on bins that drop nothing
+    slices = {}
+    cfg2 = tcfg.replace(use_texture=False, checkpoint_dir=tempfile.mkdtemp())
+    _, _, _, init_fn, step_fn = build_s2_step(cfg2, template, part_loss, pvi,
+                                              dev)
+    with step_renders(("s2 fold mask", "s2 gan T2=1", "s2 part 0",
+                       "s2 part 1")) as r2:
+        step_fn(init_fn(cfg2.seed), prepare_batch(tloader[0], True, False))
+    cfg1 = s1cfg.replace(use_texture=False, checkpoint_dir=tempfile.mkdtemp())
+    _, _, _, init_fn, step_fn, _, _ = build_s1_step(cfg1, template, dev)
+    with step_renders(("s1 seen mask", "s1 gan")) as r1:
+        step_fn(init_fn(cfg1.seed), prepare_batch(s1loader[0], False, False),
+                0.0)
+    torch.cuda.synchronize()
+    for seed, (label, r) in enumerate(
+            [(k, r2[k]) for k in ("s2 fold mask", "s2 gan T2=1",
+                                  "s2 part 0")]
+            + [("s1 seen mask", r1["s1 seen mask"])], start=20):
+        n_img = r["fv"].shape[0]
+        sel = torch.linspace(0, n_img - 1, FOLD_SLICE,
+                             device=dev).round().long()
+        fwd = checks["check_fwd_slice"](label, r, sel)
+        bwd = checks["check_slice"](
+            f"{label} slice: {FOLD_SLICE} of {n_img} images (images "
+            f"{sel.tolist()}, T2={r['tex'].shape[2]}, on bins that drop "
+            "nothing, the plain backward on the kernel forward's outputs)",
+            checks["slice_of"](r, sel, whole=True), seed,
+            shared_forward=True)
+        slices[label] = dict(images=n_img, t2=r["tex"].shape[2],
+                             fwd=fwd, bwd=bwd)
+    del r1, r2
+    rec["slices"] = slices
+
+    # the entry points under --bf16, from the command line's Config
+    entry = {}
+    s2cfg = parse_config([
+        "--bf16", "--batch_size", str(TRAIN_BATCH), "--image_size",
+        str(IMAGE_SIZE), "--subdivide", str(SUBDIVIDE), "--num_iter",
+        str(VARIANT_STEPS), "--checkpoint_dir", tempfile.mkdtemp(),
+        "--name", "s2_bf16", "--nodisplay_visuals"])
+    s1v = train_s1.config([
+        "--bf16", "--batch_size", str(S1_BATCH), "--image_size",
+        str(IMAGE_SIZE), "--subdivide", str(SUBDIVIDE), "--num_iter",
+        str(VARIANT_STEPS), "--checkpoint_dir", tempfile.mkdtemp(),
+        "--name", "s1_bf16", "--nodisplay_visuals"])
+    for label, run, want in (
+            ("train_s2.run --bf16", lambda: train_s2.run(
+                s2cfg, tloader, device=dev, semantic=(None, seg, pvi)),
+             (3, 0, 2)),
+            ("train_s1.run --bf16", lambda: train_s1.run(
+                s1v, s1loader, device=dev), (3, 1, 2))):
+        zero_launches()
+        t0 = time.perf_counter()
+        trainer = run()
+        torch.cuda.synchronize()
+        got = launches()
+        steps = trainer.state.step
+        print(f"{label}: {steps} steps in {time.perf_counter() - t0:.2f} s "
+              f"incl. set-up; launches {got} (expected {want} per step); "
+              "total_loss " + ", ".join(f"{sc['total_loss']:.4f}"
+                                        for sc in trainer.history), flush=True)
+        assert steps == VARIANT_STEPS, steps
+        assert got == tuple(VARIANT_STEPS * w for w in want), got
+        for sc in trainer.history:
+            assert all(math.isfinite(v) for v in sc.values()), sc
+        entry[label] = dict(launches=list(got), steps=steps,
+                            total_loss=[sc["total_loss"]
+                                        for sc in trainer.history])
+        del trainer
+    rec["entry_points"] = entry
+
+    # the one-camera, untextured eval model through test_iou.run
+    one_cam = init_weights(MeshNet(template, input_size=IMAGE_SIZE,
+                                   use_texture=False, multiple_cam_hypo=False),
+                           torch.Generator().manual_seed(0))
+    with tempfile.TemporaryDirectory() as tmp:
+        ecfg = iou_cfg.replace(model_path=os.path.join(tmp, "pred_net.pth"),
+                               use_texture=False, multiple_cam_hypo=False)
+        torch.save(one_cam.state_dict(), ecfg.model_path)
+        zero_launches()
+        iou = test_iou.run(ecfg, dataloader=iou_loader, device=dev)
+        torch.cuda.synchronize()
+        got = launches()
+    print(f"test_iou.run, one camera, untextured: IoU {iou:.4f} over "
+          f"{len(iou_loader)} batches of {ecfg.batch_size}; launches {got} "
+          f"(expected one forward per batch)", flush=True)
+    assert math.isfinite(iou) and 0.0 <= iou <= 1.0, iou
+    assert got == (len(iou_loader), 0, 0), got
+    rec["eval_one_camera_untextured"] = dict(iou=iou, launches=list(got))
+    rec["phase_s"] = time.perf_counter() - t_phase
+    print(f"phase 16: {rec['phase_s']:.1f} s [{smi}]", flush=True)
+    return rec
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device visible")
@@ -1535,29 +1772,60 @@ def main():
         return dict(r, fv=fv_, tex=tex_,
                     bins=tuple(b[sel].contiguous() for b in r["bins"]))
 
-    def check_slice(name, r, seed):
-        """The backward kernel on a recorded render's slice, through the
-        autograd Function, against the plain version per lane group; then
-        the kernel's time, the plain backward's and the bound."""
+    def check_slice(name, r, seed, shared_forward=False):
+        """The backward kernel on a recorded render's slice against the
+        plain version per lane group; then the kernel's time, the plain
+        backward's and the bound. By default both sides run their own
+        forward, the kernel's through the autograd Function. With
+        shared_forward the plain backward takes the kernel forward's rgba
+        and aggr (each forward is held against its plain version on its
+        own): where the texels are one colour (the untextured GAN view's
+        T2=1 ones) every fragment's colour is the pixel's, so the depth
+        lanes' colour difference (colour - rgb) is the forward's rounding
+        times 1/gamma, on each side's own forward noise of ~1e-4 against
+        vertex x, y gradients of ~5e2, which the per-group limits cannot
+        hold; on shared forward outputs both sides compute the same
+        difference, and a depth group that is exactly zero on the plain
+        side must be exactly zero in the kernel."""
         opts, kw = r["bwd"], r["kw"]
-        g = torch.randn(r["fv"].shape[:1] + (S, S, 4), device=dev,
+        n = kw["image_size"]
+        g = torch.randn(r["fv"].shape[:1] + (n, n, 4), device=dev,
                         generator=torch.Generator(dev).manual_seed(seed))
-        kf, kt = kernel_grads(raster_kernel, r["fv"], r["tex"], g,
-                              bins=r["bins"], **kw)
         plain_kw = {k: kw[k] for k in ("image_size", "background_color",
                                        "sigma_val", "dist_eps", "gamma_val")}
-        pf, pt = plain_grads(r["fv"], r["tex"], g, plain_kw, opts)
-        e, rel = grad_check(name, (kf, kt), (pf, pt), opts)
-        del kf, kt, pf, pt
-        o = render_fwd(r)
-        ms_k, _ = cuda_time(lambda: render_bwd(r, o, g), 20)
-        with torch.no_grad():
-            ref = soft_rasterize(r["fv"], r["tex"],
-                                 mask_only=opts["mask_only"], **plain_kw)
-            ms_p, _ = cuda_time(lambda: soft_rasterize_bwd(
-                r["fv"], r["tex"], ref.rgba, ref.aggr, g, **opts,
-                **{k: v for k, v in plain_kw.items()
-                   if k != "background_color"}), 1)
+        bwd_kw = {k: v for k, v in plain_kw.items()
+                  if k != "background_color"}
+        if shared_forward:
+            o = render_fwd(r)
+            ms_k, got = cuda_time(lambda: render_bwd(r, o, g), 20)
+            with torch.no_grad():
+                ms_p, want = cuda_time(lambda: soft_rasterize_bwd(
+                    r["fv"], r["tex"], o.rgba, o.aggr, g, **opts, **bwd_kw),
+                    1, warmup=0)
+            check_opts = opts
+            if lanes(opts)[1] and want[0][..., 2].abs().max().item() == 0:
+                z = got[0][..., 2].abs().max().item()
+                print(f"{name}: vertex z exactly zero in the plain version "
+                      f"on the kernel forward's outputs; the kernel's max "
+                      f"|z| {z:.3e} (must be 0)", flush=True)
+                assert z == 0, name
+                # grad_check then holds the group to zero on both sides
+                check_opts = dict(opts, rgb_geom_detach=True)
+            e, rel = grad_check(name, got, want, check_opts)
+        else:
+            kf, kt = kernel_grads(raster_kernel, r["fv"], r["tex"], g,
+                                  bins=r["bins"], **kw)
+            pf, pt = plain_grads(r["fv"], r["tex"], g, plain_kw, opts)
+            e, rel = grad_check(name, (kf, kt), (pf, pt), opts)
+            del kf, kt, pf, pt
+            o = render_fwd(r)
+            ms_k, _ = cuda_time(lambda: render_bwd(r, o, g), 20)
+            with torch.no_grad():
+                ref = soft_rasterize(r["fv"], r["tex"],
+                                     mask_only=opts["mask_only"], **plain_kw)
+                ms_p, _ = cuda_time(lambda: soft_rasterize_bwd(
+                    r["fv"], r["tex"], ref.rgba, ref.aggr, g, **opts,
+                    **bwd_kw), 1)
         _, _, sb = render_bounds(r)
         print(f"{name.split(':')[0]}: backward kernel {ms_k:.3f} ms, plain "
               f"backward {ms_p:.1f} ms, bound {sb[0]:.3f} ms ({sb[1]}) "
@@ -2030,6 +2298,20 @@ def main():
           "passed, with their visuals")
     cub_rec = cub_path(dev, smi, template)
 
+    phase("16. the training flag variants: s2 (batch 16) bf16, without "
+          "texture, without the GAN, az_ele_quat; s1 (batch 64) bf16, "
+          "without the GAN, without texture; the entry points under --bf16; "
+          "test_iou on a one-camera, untextured model; the new kernel shapes")
+    variants_rec = flag_variants(
+        dev, smi, template, tcfg, tloader, seg, pvi, part_loss, s1cfg,
+        s1loader, cfg, loader, dict(check_fwd_slice=check_fwd_slice,
+                                    check_slice=check_slice,
+                                    slice_of=slice_of))
+    var_slices = variants_rec["slices"].values()
+    max_err = max(max_err, *(v["fwd"]["rgba"] for v in var_slices))
+    bwd_err = max(bwd_err, *(v["bwd"]["max_abs"] for v in var_slices))
+    bwd_rel = max(bwd_rel, *(v["bwd"]["max_rel"] for v in var_slices))
+
     record = {"kernels": [{
         "name": "raster_fwd", "route": "cuda", "source": KERNEL_SRC,
         "replaces": TPU_KERNEL, "launches": train_fwd,
@@ -2077,6 +2359,7 @@ def main():
         "s1_gan_ms": s1_shapes["s1 gan"]["fwd_ms"],
         "s1_gan_bound_ms": s1_shapes["s1 gan"]["fwd_bound"][0],
         "step_slices": fwd_slices,
+        "variants": variants_rec,
         "ptxas": {k: v for k, v in usage.items()
                   if k.startswith("raster_fwd")},
     }, {
@@ -2113,6 +2396,11 @@ def main():
         "s1_gan_slice_ms": slices["s1 gan"]["ms"],
         "s1_gan_slice_plain_ms": slices["s1 gan"]["plain_ms"],
         "s1_gan_slice_max_rel_err": slices["s1 gan"]["max_rel"],
+        "variants_launches": {
+            f"{st} {k}": v["launches"][2]
+            for st in ("s2", "s1") for k, v in variants_rec[st].items()},
+        "variant_slices": {k: v["bwd"] for k, v in
+                           variants_rec["slices"].items()},
         "ptxas": {k: v for k, v in usage.items()
                   if k.startswith("raster_bwd")},
     }]}

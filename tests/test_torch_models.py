@@ -28,11 +28,24 @@ KEYS = ("mean", "logvar", "feat", "cam_hypotheses", "cam_probs", "cam",
 WEIGHTS = os.path.join(os.path.dirname(__file__), os.pardir, "weights")
 
 
-@pytest.mark.parametrize("stage,num_cams,n_upconv",
-                         [(2, 8, 5), (2, 2, 4), (1, 8, 5)])
-def test_key_map_matches_jax(stage, num_cams, n_upconv):
-    assert (tio.build_key_map(stage, num_cams, n_upconv)
-            == jio.build_key_map(stage, num_cams, n_upconv))
+@pytest.mark.parametrize("stage,num_cams,n_upconv,variant", [
+    pytest.param(2, 8, 5, {}, id="2-8-5"),
+    pytest.param(2, 2, 4, {}, id="2-2-4"),
+    pytest.param(1, 8, 5, {}, id="1-8-5"),
+    pytest.param(2, 8, 5, dict(use_texture=False), id="2-8-5-untextured"),
+    pytest.param(1, 8, 5, dict(use_texture=False), id="1-8-5-untextured")])
+def test_key_map_matches_jax(stage, num_cams, n_upconv, variant):
+    """The port's key map is the JAX package's; an untextured model's is
+    JAX's without the texture predictor's rows.
+    az_ele_quat keeps every row; stage 2's single camera has no rows in
+    JAX's map (tests/test_torch_variants.py round-trips it through a
+    JAX-saved .pth)."""
+    want = jio.build_key_map(stage, num_cams, n_upconv)
+    if variant:
+        want = tuple([row for row in rows
+                      if not row[1].startswith("texture_predictor.")]
+                     for rows in want)
+    assert tio.build_key_map(stage, num_cams, n_upconv, **variant) == want
 
 
 def _port_model(template, variables, image_size, nz_feat, z_dim,

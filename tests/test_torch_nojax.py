@@ -1,5 +1,5 @@
-"""The port (the inference slice, a training step of each stage, the
-stage handoff through files: avg_uv, test_kp, the synthetic category
+"""The port (the inference slice, a training step of each stage and a
+flag variant's (--bf16 --nouse_texture), the stage handoff through files: avg_uv, test_kp, the synthetic category
 with its loader and curriculum tools, and the CUB data path: train_s1
 and test_iou --visualize from a --cub_dir with no loader passed, the
 native EDT, the JPEG reader's module) runs with jax, flax, optax, orbax,
@@ -65,6 +65,17 @@ cfg = train_s1.config(["--image_size", "32", "--batch_size", "2",
                        "--name", "s1"])
 trainer = train_s1.run(cfg, [synthetic_batch(rng, 2, 32)], device="cpu")
 assert trainer.state.step == 1
+assert all(np.isfinite(v) for v in trainer.history[0].values())
+# a flag variant: bf16 without texture, from the command line
+vcfg = train_s1.config(["--image_size", "32", "--batch_size", "2",
+                        "--anti_aliasing=false", "--subdivide", "1",
+                        "--tex_size", "2", "--nz_feat", "16", "--z_dim", "8",
+                        "--num_iter", "1", "--noprint_scalars", "--bf16",
+                        "--nouse_texture", "--nodisplay_visuals",
+                        "--checkpoint_dir", os.path.join(tmp, "snap"),
+                        "--name", "s1_variant"])
+trainer = train_s1.run(vcfg, [synthetic_batch(rng, 2, 32)], device="cpu")
+assert trainer.state.step == 1 and "tex_loss" not in trainer.history[0]
 assert all(np.isfinite(v) for v in trainer.history[0].values())
 from umr_tpu_torch.experiments import avg_uv, test_kp
 cfg = cfg.replace(model_path=os.path.join(tmp, "snap", "s1",

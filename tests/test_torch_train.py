@@ -444,8 +444,8 @@ def test_step_ranges_split_a_trace(tmp_path):
 
 def test_entry_points_default_to_the_card():
     """Without a device the entry points ask for the card, and raise where
-    none is visible (a CPU-only host); the step raises on what it does not
-    port."""
+    none is visible (a CPU-only host); the step raises on what the JAX
+    package cannot run either (pred_cam=False: no camera to render at)."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is visible: the default is valid here")
     template = build_template(2, 1, 2)
@@ -454,5 +454,5 @@ def test_entry_points_default_to_the_card():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train_s2.run(cfg, [synthetic_batch(np.random.RandomState(0), 2,
                                            IMG)], semantic=(None, seg, pvi))
-    with pytest.raises(NotImplementedError):
-        _port_step(cfg.replace(bf16=True), template, seg, pvi)
+    with pytest.raises(NotImplementedError, match="pred_cam"):
+        _port_step(cfg.replace(pred_cam=False), template, seg, pvi)

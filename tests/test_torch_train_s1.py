@@ -359,19 +359,30 @@ def test_s1_checkpoint_loads(tmp_path, keys):
 
 
 def test_check_supported_by_stage():
-    """Stage 1 needs a textured model with a predicted camera and reads
-    no hypothesis flag; stage 2 needs the hypotheses."""
+    """What the JAX package cannot run either is refused: pred_cam=False
+    in both steps and the eval model (no camera to render at),
+    multiple_cam_hypo=False in the stage-2 step (no hypotheses); stage 1
+    reads no hypothesis flag and the eval model takes one camera. The
+    other flags build in both stages."""
     from umr_tpu_torch.config import check_supported
 
     one_cam = Config(multiple_cam_hypo=False)
     check_supported(one_cam, stage=1)
-    with pytest.raises(NotImplementedError):
+    check_supported(one_cam, train=False)
+    with pytest.raises(NotImplementedError, match="multiple_cam_hypo"):
         check_supported(one_cam)
-    for k in ("use_texture", "pred_cam"):
-        with pytest.raises(NotImplementedError):
-            check_supported(Config(**{k: False}), stage=1)
-    with pytest.raises(NotImplementedError):
-        tsteps.build_s1_step(Config(**KW, use_gan=False),
+    for stage, train in ((1, True), (2, True), (2, False)):
+        with pytest.raises(NotImplementedError, match="pred_cam"):
+            check_supported(Config(pred_cam=False), stage=stage,
+                            train=train)
+    for k, v in (("use_texture", False), ("use_gan", False), ("bf16", True),
+                 ("az_ele_quat", True)):
+        check_supported(Config(**{k: v}))
+        check_supported(Config(**{k: v}), stage=1)
+    tsteps.build_s1_step(Config(**KW, use_gan=False),
+                         build_template(2, 1, 2), "cpu")
+    with pytest.raises(NotImplementedError, match="pred_cam"):
+        tsteps.build_s1_step(Config(**KW, pred_cam=False),
                              build_template(2, 1, 2), "cpu")
 
 

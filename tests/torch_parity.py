@@ -99,7 +99,8 @@ def jax_meshnet(template, image_size, nz_feat, z_dim, num_hypo_cams,
 def flax_variables(model, template, num_hypo_cams, stage=2):
     """A port MeshNet's (MeshNetS1's, stage=1) weights, BN statistics,
     buffers and mean_v as the JAX package's model variables, through its
-    key map and transforms."""
+    key map and transforms. An untextured model has no keys for the
+    texture predictor: its rows are skipped."""
     from umr_tpu.models.reference_io import _apply_transform, build_key_map
 
     # copies: a view would follow the model's in-place updates
@@ -111,6 +112,8 @@ def flax_variables(model, template, num_hypo_cams, stage=2):
     for coll, maps in (("params", pm), ("batch_stats", sm),
                        ("buffers", bm), ("template", tm)):
         for path, tkey, tf in maps:
+            if tkey not in sd:
+                continue
             node = variables.setdefault(coll, {})
             for part in path[:-1]:
                 node = node.setdefault(part, {})
@@ -134,3 +137,188 @@ def injected_draws(out):
     eps = (np.asarray(out["noise"]) - mean) * np.exp(-0.5 * logvar)
     return (torch.as_tensor(eps.astype(np.float32)),
             torch.as_tensor(np.array(out["cam_sample_inds"])))
+
+
+def flat_tree(tree, prefix=""):
+    """A nested dict of leaves -> {'a/b/c': leaf} (leaves kept as they are)."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(flat_tree(v, f"{prefix}{k}/"))
+        else:
+            out[f"{prefix}{k}"] = v
+    return out
+
+
+def params_of(state):
+    """{'model.<name>' / 'disc.<name>': a copy} of a port TrainState's
+    trainable parameters."""
+    return {f"{p}.{n}": t.detach().clone()
+            for p, mod in (("model", state.model), ("disc", state.disc))
+            for n, t in mod.named_parameters()}
+
+
+def cosine(a, b):
+    """Cosine of two gradient dicts flattened (a's keys, float64)."""
+    x = np.concatenate([v.ravel() for v in a.values()]).astype(np.float64)
+    y = np.concatenate([b[k].ravel() for k in a]).astype(np.float64)
+    return float(x @ y / (np.linalg.norm(x) * np.linalg.norm(y)))
+
+
+def part_semantic(template):
+    """A seeded UV part-label map [16,32] and head, belly, neck, back
+    vertex index sets (tests/test_torch_train.py's)."""
+    rng = np.random.RandomState(5)
+    seg = rng.randint(0, 5, size=(16, 32)).astype(np.float32)
+    idx = rng.permutation(template.num_verts)
+    return seg, [idx[0:20], idx[20:60], idx[60:80], idx[80:120]]
+
+
+def _jax_grads_torch_layout(jgrads, names, stage, num_cams, n_up):
+    """JAX gradients {'model/<flax path>' | 'disc/...': array} -> the
+    port's parameter names and layouts, through the JAX package's key
+    map (the discriminator's fixed names beside it)."""
+    from umr_tpu.models.reference_io import _apply_transform, build_key_map
+
+    pm, _, _, _ = build_key_map(stage, num_cams, n_up)
+    where = {f"model.{tkey}": ("model/" + "/".join(path), tf)
+             for path, tkey, tf in pm}
+    disc = {"convs.0": "Conv_0", "convs.1": "Conv_1", "convs.2": "Conv_2",
+            "convs.3": "Conv_3", "head": "Conv_4"}
+    for t, f in disc.items():
+        where[f"disc.{t}.weight"] = (f"disc/{f}/kernel", "conv")
+        where[f"disc.{t}.bias"] = (f"disc/{f}/bias", "copy")
+    where["disc.fc.weight"] = ("disc/Dense_0/kernel", "linear")
+    where["disc.fc.bias"] = ("disc/Dense_0/bias", "copy")
+    return {k: _apply_transform(jgrads[where[k][0]], where[k][1],
+                                to_flax=False) for k in names}
+
+
+def step_parity(stage, kw, jax_kw, lr, B=4, image_size=32, impl="auto"):
+    """One training step of the port (stage 1 or 2, Config(**kw)) and of
+    the JAX package's (Config(**kw, **jax_kw)) on the same weights (the
+    port's seeded init carried to flax; the discriminator's flax init
+    carried back; LPIPS from the committed npz), the same synthetic
+    batch and the JAX step's random draws injected, one SGD step at
+    learning rate lr on both sides. Stage 1 runs at epoch 0, from a
+    template moved off its init. Returns dict(port_sc, port_grads,
+    jax_sc, jax_grads) with the gradients as (p0 - p1) / lr under the
+    port's parameter names and layouts."""
+    import os
+
+    import jax
+    import jax.numpy as jnp
+
+    from umr_tpu.config import Config as JaxConfig
+    from umr_tpu.losses.composite import PartMatchingLoss as JaxPartLoss
+    from umr_tpu.mesh import build_template as jax_template
+    from umr_tpu.models.weight_io import load_lpips_params
+    from umr_tpu.renderer import SoftRenderer as JaxRenderer
+    from umr_tpu.training import steps as jsteps
+    from umr_tpu_torch.config import Config
+    from umr_tpu_torch.data import synthetic_batch
+    from umr_tpu_torch.losses.composite import PartMatchingLoss
+    from umr_tpu_torch.mesh import build_template
+    from umr_tpu_torch.models.weights import (WEIGHTS_DIR,
+                                              discriminator_state_from_flax)
+    from umr_tpu_torch.renderer import SoftRenderer
+    from umr_tpu_torch.training import steps as tsteps
+    from umr_tpu_torch.training.trainer import prepare_batch
+
+    cfg = Config(**kw)
+    jcfg = JaxConfig(**kw, **jax_kw)
+    template, jt = build_template(2, 1, 2), jax_template(2, 1, 2)
+    batch = synthetic_batch(np.random.RandomState(3), B, image_size)
+    db = prepare_batch(batch, cfg.use_scops, cfg.use_texture)
+    jbatch = {k: jnp.asarray(v) for k, v in db.items()}
+    common = dict(image_size=image_size, anti_aliasing=False,
+                  ambient_intensity=1.0, directional_intensity=0.0)
+    if stage == 2:
+        seg, pvi = part_semantic(template)
+        pl = PartMatchingLoss.build(
+            seg, template.uv_sampler, template.num_sym_faces,
+            SoftRenderer(impl=impl, **common), tex_size=2)
+        _, _, _, init_fn, step_fn = tsteps.build_s2_step(
+            cfg, template, pl, pvi, "cpu", impl=impl)
+        jpl = JaxPartLoss.build(
+            seg, jt.uv_sampler, jt.num_sym_faces,
+            JaxRenderer(**common, face_chunk=jax_kw.get(
+                "face_chunk", cfg.face_chunk), pixel_rows_per_block=jax_kw[
+                    "pixel_rows_per_block"]), tex_size=2)
+        jmodel, jdisc, _, _, jstep = jsteps.build_s2_step(jcfg, jt, jpl, pvi)
+        num_cams = cfg.num_hypo_cams
+    else:
+        _, _, _, init_fn, step_fn, _, _ = tsteps.build_s1_step(
+            cfg, template, "cpu", impl=impl)
+        jmodel, jdisc, _, _, jstep, _, _ = jsteps.build_s1_step(jcfg, jt)
+        num_cams = 0
+    state = init_fn(0)
+    if stage == 1:
+        with torch.no_grad():      # a template away from the init's
+            state.model.mean_v.add_(torch.as_tensor(
+                np.random.RandomState(8).normal(
+                    0.0, 0.05, state.model.mean_v.shape).astype(np.float32)))
+    variables = flax_variables(state.model, template, num_cams, stage)
+    dparams = jdisc.init(jax.random.key(9), jnp.zeros(
+        (2, image_size, image_size, 3 if stage == 2 else 1)))["params"]
+    state.disc.load_state_dict(discriminator_state_from_flax(dparams))
+    params = {"model": variables["params"], "disc": dparams}
+    jstate = jsteps.TrainState(
+        step=jnp.zeros((), jnp.int32), params=params,
+        batch_stats={"model": variables["batch_stats"]},
+        buffers=variables["buffers"], template=variables["template"],
+        opt_state=jsteps.make_optimizer(jcfg).init(params),
+        lpips=load_lpips_params(os.path.join(WEIGHTS_DIR, "lpips_alex.npz")))
+    key = jax.random.key(1)
+    args = (jnp.float32(0.0),) if stage == 1 else ()
+    jstate1, jsc = jstep(jstate, jbatch, key, *args)
+
+    # the JAX step's draws: its key split as loss_fn splits it
+    k_sample, k_gan = jax.random.split(key)
+    out, _ = jmodel.apply(
+        {**variables, "params": params["model"]}, jbatch["input_img"],
+        train=True, rngs={"sample": k_sample}, mutable=["batch_stats"])
+    mean, logvar = np.asarray(out["mean"]), np.asarray(out["logvar"])
+    noise = np.asarray(out["noise" if stage == 2 else "feat"])
+    draws = {"eps": torch.as_tensor(
+        ((noise - mean) * np.exp(-0.5 * logvar)).astype(np.float32))}
+    if stage == 2:
+        draws["sample_inds"] = torch.as_tensor(
+            np.array(out["cam_sample_inds"]))
+    if cfg.use_gan:
+        draws["angles"] = torch.as_tensor(np.array(
+            jax.random.randint(k_gan, (B,), 0, 180)))
+
+    p0 = params_of(state)
+    step_args = (0.0,) if stage == 1 else ()
+    state, sc = step_fn(state, db, *step_args, draws=draws)
+    p1 = params_of(state)
+    port_grads = {k: np_of((p0[k] - p1[k]) / lr) for k in p0}
+    jgrads = {}
+    for pre in ("model", "disc"):
+        after = flat_tree(jstate1.params[pre])
+        for k, v in flat_tree(jstate.params[pre]).items():
+            jgrads[f"{pre}/{k}"] = (np.asarray(v) - np.asarray(after[k])) / lr
+    n_up = min(5, int(np.log2(template.uv_image_size()[0])))
+    return dict(port_sc={k: float(v) for k, v in sc.items()},
+                port_grads=port_grads,
+                jax_sc={k: float(v) for k, v in jsc.items()},
+                jax_grads=_jax_grads_torch_layout(
+                    jgrads, port_grads, stage, num_cams, n_up))
+
+
+def grads_close(g, jg, rel, cos):
+    """Per tensor ||g - g_jax|| <= rel ||g_jax|| + 1e-6 x the norm of all
+    gradients, and the cosine of all gradients >= cos; returns the
+    readings (worst per-tensor ratio, cosine)."""
+    total = np.sqrt(sum(np.sum(v.astype(np.float64) ** 2)
+                        for v in jg.values()))
+    assert total > 0
+    worst = 0.0
+    for k in g:
+        err = np.linalg.norm(g[k] - jg[k])
+        worst = max(worst, err / (np.linalg.norm(jg[k]) + 1e-30))
+        assert err <= rel * np.linalg.norm(jg[k]) + 1e-6 * total, k
+    c = cosine(g, jg)
+    assert c >= cos, c
+    return worst, c

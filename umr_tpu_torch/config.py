@@ -8,8 +8,8 @@ inference entry points read the model, renderer and I/O ones. cli.py
 builds the command line from these fields.
 
 Beside it, what every entry point and the training layer share: the
-device rule (resolve_device), the model scope the port supports
-(check_supported) and the ResNet input normalisation.
+device rule (resolve_device), the model variants the JAX package cannot
+run either (check_supported) and the ResNet input normalisation.
 """
 
 from __future__ import annotations
@@ -172,16 +172,23 @@ def resolve_device(device=None):
     return device
 
 
-def check_supported(cfg: Config, stage=2):
-    """The port has the textured models with a predicted camera: stage 2
-    multi-hypothesis, stage 1 single-camera (multiple_cam_hypo unread)."""
-    required = ("use_texture", "pred_cam") + (
-        ("multiple_cam_hypo",) if stage == 2 else ())
-    for k in required:
-        if not getattr(cfg, k):
-            raise NotImplementedError(f"--{k}=False is not ported")
-    if stage == 2 and cfg.az_ele_quat:
-        raise NotImplementedError("--az_ele_quat is not ported")
+def check_supported(cfg: Config, stage=2, train=True):
+    """Refuse the model variants the JAX package cannot run either, with
+    its reason; every other flag builds. A training step of either stage
+    reads the predicted camera, which pred_cam=False does not produce,
+    and so does test_iou's render; stage 2's step also reads the camera
+    hypotheses, which the one-camera model (multiple_cam_hypo=False)
+    does not produce. The eval model (train=False) takes one camera."""
+    if not cfg.pred_cam:
+        raise NotImplementedError(
+            "--pred_cam=False: the model then predicts no camera, and the "
+            "JAX package's losses and test_iou read outputs['cam'] (it "
+            "cannot run this either)")
+    if train and stage == 2 and not cfg.multiple_cam_hypo:
+        raise NotImplementedError(
+            "--multiple_cam_hypo=False in the stage-2 step: the one-camera "
+            "model gives no camera hypotheses, and the JAX package's step "
+            "reads outputs['cam_hypotheses'] (it cannot run this either)")
 
 
 def normalize_images(imgs):

@@ -44,7 +44,12 @@ PART_NAMES = ("head", "neck", "back", "belly")
 
 def load_s1_model(cfg: Config, template, device):
     """MeshNet-S1 with the weights of cfg.model_path (either key layout),
-    in eval mode."""
+    in eval mode. avg_uv transfers part maps through the UV flow: a model
+    without texture has none, and is refused (the JAX package's avg_uv
+    fails on it too, reading outputs['uvimage_pred'])."""
+    if not cfg.use_texture:
+        raise ValueError("avg_uv needs the UV flow of a textured stage-1 "
+                         "model; --use_texture=False predicts none")
     model = MeshNetS1(template, input_size=cfg.image_size,
                       nz_feat=cfg.nz_feat, z_dim=cfg.z_dim)
     load_checkpoint(model, cfg.model_path)

@@ -32,11 +32,17 @@ VIS_BATCHES = 5     # --visualize dumps the first batches only
 
 
 def build_eval_model(cfg: Config, template, device=None):
-    """MeshNet-s2 with the weights of cfg.model_path, in eval mode."""
-    check_supported(cfg)
+    """MeshNet-s2 in cfg's variant (use_texture, multiple_cam_hypo, as
+    the JAX package's build_eval_model; az_ele_quat too, so that such a
+    checkpoint's 3-wide quaternion layers load) with the weights of
+    cfg.model_path, in eval mode."""
+    check_supported(cfg, train=False)
     device = resolve_device(device)
     model = MeshNet(template, input_size=cfg.image_size, nz_feat=cfg.nz_feat,
-                    z_dim=cfg.z_dim, num_hypo_cams=cfg.num_hypo_cams)
+                    z_dim=cfg.z_dim, num_hypo_cams=cfg.num_hypo_cams,
+                    use_texture=cfg.use_texture,
+                    multiple_cam_hypo=cfg.multiple_cam_hypo,
+                    az_ele_quat=cfg.az_ele_quat)
     load_checkpoint(model, cfg.model_path)
     return model.to(device).eval()
 
@@ -65,8 +71,8 @@ def predict_masks(model, renderer, faces, batch_img, eps=None,
 
 def save_iou_visuals(cfg: Config, model, batch, out, pred_mask, vis_iter):
     """The first sample_num samples of a batch: image_gt, mask_gt and
-    mask_pred grids and mesh_<i>.obj textured from the image, into
-    {results_vis_dir}/vis_iter_<vis_iter>/."""
+    mask_pred grids and mesh_<i>.obj, textured from the image where the
+    model predicts texture, into {results_vis_dir}/vis_iter_<vis_iter>/."""
     n = min(cfg.sample_num, batch["img"].shape[0])
     device = pred_mask.device
     imgs = torch.as_tensor(batch["img"][:n], device=device).float()
@@ -78,11 +84,14 @@ def save_iou_visuals(cfg: Config, model, batch, out, pred_mask, vis_iter):
     }
     verts = (model.get_mean_shape()[None]
              + symmetrize(out["delta_v"][:n], model.template)).cpu().numpy()
-    tex = sample_textures(out["tex_flow"][:n], imgs)
-    B, F, T = tex.shape[:3]
-    tex = tex.reshape(B, F, T * T, 3).cpu().numpy()
+    tex = None
+    if "tex_flow" in out:
+        tex = sample_textures(out["tex_flow"][:n], imgs)
+        B, F, T = tex.shape[:3]
+        tex = tex.reshape(B, F, T * T, 3).cpu().numpy()
     for i in range(n):
-        vis[f"mesh_{i}"] = (verts[i], model.template.faces, tex[i])
+        vis[f"mesh_{i}"] = (verts[i], model.template.faces,
+                            None if tex is None else tex[i])
     save_visuals(vis, os.path.join(cfg.results_vis_dir,
                                    f"vis_iter_{vis_iter}"))
 

@@ -11,6 +11,11 @@ Parity traps reproduced here:
     scale_lr / scale_bias flags say (dead in the reference).
   * MultiCamPredictor: the hypothesis is a categorical draw over
     log(p + 1e-9), i.e. proportional to p + 1e-9.
+  * QuatHeadAzEle (az_ele_quat): its linear layer exists and is unused;
+    the angles are tanh of the features' first three entries.
+compute_dtype (bf16 mixed precision) reaches the convs of the encoder's
+trunk, its enc_conv1 and the texture decoder (net_blocks.py); the linear
+layers and every head stay float32, as in the JAX package.
 Random draws take an explicit torch.Generator, or are injected (`eps`,
 `sample_inds`) so tests can feed the JAX package's draws.
 """
@@ -23,7 +28,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.grid_sample import grid_sample
-from ..ops.quaternion import hamilton_product
+from ..ops.quaternion import ang2quat, hamilton_product
 from .net_blocks import conv2d, decoder2d, fc_stack
 from .resnet import ResNetConv
 
@@ -32,15 +37,18 @@ class Encoder(nn.Module):
     """ResNet trunk -> conv -> fc stack -> (feat, noise, mean, logvar).
     Input NCHW."""
 
-    def __init__(self, input_size=256, nz_feat=200, z_dim=350):
+    def __init__(self, input_size=256, nz_feat=200, z_dim=350,
+                 compute_dtype=None):
         super().__init__()
-        self.resnet_conv = ResNetConv(n_blocks=4)
+        self.resnet_conv = ResNetConv(n_blocks=4, compute_dtype=compute_dtype)
         fmap = -(-input_size // 32)             # trunk output side
         if fmap >= 2:
-            self.enc_conv1 = conv2d(512, 256, kernel_size=4, stride=2)
+            self.enc_conv1 = conv2d(512, 256, kernel_size=4, stride=2,
+                                    compute_dtype=compute_dtype)
             out = (fmap + 2 - 4) // 2 + 1
         else:
-            self.enc_conv1 = conv2d(512, 256, kernel_size=1, stride=1)
+            self.enc_conv1 = conv2d(512, 256, kernel_size=1, stride=1,
+                                    compute_dtype=compute_dtype)
             out = fmap
         self.enc_fc = fc_stack(256 * out * out, nz_feat, 2)
         self.mean_fc = nn.Sequential(nn.Linear(nz_feat, nz_feat),
@@ -96,14 +104,16 @@ class TexturePredictorUV(nn.Module):
     flow. Returns (tex_flow [B,F,T,T,2], uv_image [B,H,W,2])."""
 
     def __init__(self, nz_feat, uv_sampler, img_H=128, img_W=256,
-                 n_upconv=5, nc_init=256, num_sym_faces=624):
+                 n_upconv=5, nc_init=256, num_sym_faces=624,
+                 compute_dtype=None):
         super().__init__()
         self.feat_H = img_H // (2 ** n_upconv)
         self.feat_W = img_W // (2 ** n_upconv)
         self.nc_init = nc_init
         self.num_sym_faces = num_sym_faces
         self.enc = fc_stack(nz_feat, nc_init * self.feat_H * self.feat_W, 2)
-        self.decoder = decoder2d(n_upconv, nc_init, nc_final=2)
+        self.decoder = decoder2d(n_upconv, nc_init, nc_final=2,
+                                 compute_dtype=compute_dtype)
         # not part of the state: the reference stores it batch-shaped
         self.register_buffer("uv_sampler",
                              torch.as_tensor(np.asarray(uv_sampler)),
@@ -112,7 +122,8 @@ class TexturePredictorUV(nn.Module):
     def forward(self, feat):
         B = feat.shape[0]
         x = self.enc(feat).reshape(B, self.nc_init, self.feat_H, self.feat_W)
-        uv_image = torch.tanh(self.decoder(x)).permute(0, 2, 3, 1)  # NHWC
+        # the last conv's output back to float32
+        uv_image = torch.tanh(self.decoder(x).float()).permute(0, 2, 3, 1)
         Ftex, T = self.uv_sampler.shape[:2]
         grid = self.uv_sampler.reshape(1, Ftex * T * T, 2).expand(B, -1, -1)
         tex = grid_sample(uv_image, grid).reshape(B, Ftex, T, T, 2)
@@ -151,6 +162,19 @@ class QuatHead(_Pred):
         return q / torch.linalg.norm(q, dim=-1, keepdim=True).clamp_min(1e-12)
 
 
+class QuatHeadAzEle(_Pred):
+    """Azimuth / elevation / cyclo-rotation camera head (az_ele_quat), with
+    the reference's quirk kept: its linear layer exists but is unused,
+    and the angles are tanh(feat[..., :3]) over the CUB ranges pi/6,
+    pi/2, pi/3 (ops/quaternion.py::ang2quat)."""
+
+    def __init__(self, nz):
+        super().__init__(nz, 3)
+
+    def forward(self, feat):
+        return ang2quat(feat[..., :3])
+
+
 class TransHead(_Pred):
     def __init__(self, nz):
         super().__init__(nz, 2)
@@ -162,10 +186,11 @@ class TransHead(_Pred):
 class Camera(nn.Module):
     """One hypothesis head -> [quat(4), prob(1), scale(1), trans(2)]."""
 
-    def __init__(self, nz_input):
+    def __init__(self, nz_input, az_ele_quat=False):
         super().__init__()
         self.fc_layer = fc_stack(nz_input, nz_input, 2)
-        self.quat_predictor = QuatHead(nz_input)
+        self.quat_predictor = (QuatHeadAzEle(nz_input) if az_ele_quat
+                               else QuatHead(nz_input))
         self.prob_predictor = nn.Linear(nz_input, 1)
         self.scale_predictor = ScaleHead(nz_input)
         self.trans_predictor = TransHead(nz_input)
@@ -193,11 +218,11 @@ class MultiCamPredictor(nn.Module):
     Returns (cam [B,7], sample_inds [B,1], cam_probs [B,K],
     all_cams [B,K,7], quats [B,K,4])."""
 
-    def __init__(self, nz_feat=200, num_cams=8):
+    def __init__(self, nz_feat=200, num_cams=8, az_ele_quat=False):
         super().__init__()
         self.fc = fc_stack(nz_feat, nz_feat, 2, use_bn=False)
         self.camera_predictor = nn.ModuleList(
-            [Camera(nz_feat) for _ in range(num_cams)])
+            [Camera(nz_feat, az_ele_quat) for _ in range(num_cams)])
         # present in the reference's state, unused by its forward
         self.scale_predictor = ScaleHead(nz_feat)
         self.trans_predictor = TransHead(nz_feat)

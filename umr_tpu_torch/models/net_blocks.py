@@ -5,11 +5,42 @@ Module indices follow the reference's nn.Sequential layout, so state_dict
 keys are the reference's (e.g. `enc_fc.0.0.weight`, `enc_fc.0.1.running_mean`).
 LeakyReLU slopes: 0.2 after BN, 0.1 for fc layers without BN, 0.2 for
 convs. BatchNorm eps 1e-5, momentum 0.1 (flax's 0.9).
+
+Mixed precision (--bf16) follows flax's `dtype=` of the JAX package's
+convs: a conv given compute_dtype casts its input, weight and bias to it
+and returns that dtype; every BatchNorm normalises a float32 copy of its
+input and returns float32 (flax's BatchNorm(dtype=float32)); linear
+layers stay float32. Parameters are float32 throughout.
 """
 
 from __future__ import annotations
 
 import torch.nn as nn
+
+
+class Conv2d(nn.Conv2d):
+    """nn.Conv2d that, under compute_dtype, casts its input, weight and
+    bias to that dtype and returns it (None: the module's own dtype)."""
+
+    def __init__(self, *args, compute_dtype=None, **kw):
+        super().__init__(*args, **kw)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x):
+        dt = self.compute_dtype
+        if dt is None:
+            return super().forward(x)
+        return self._conv_forward(
+            x.to(dt), self.weight.to(dt),
+            None if self.bias is None else self.bias.to(dt))
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """nn.BatchNorm2d on a float32 copy of its input (a float32 input is
+    taken as is): after a bfloat16 conv it computes and returns float32."""
+
+    def forward(self, x):
+        return super().forward(x.float())
 
 
 def fc(in_features, out_features, use_bn=True):
@@ -30,38 +61,43 @@ def fc_stack(in_features, out_features, nlayers, use_bn=True):
     ])
 
 
-def conv2d(in_planes, out_planes, kernel_size=3, stride=1, use_bn=True):
+def conv2d(in_planes, out_planes, kernel_size=3, stride=1, use_bn=True,
+           compute_dtype=None):
     """Conv (padding (k-1)//2) [+ BatchNorm2d] + LeakyReLU(0.2)."""
-    layers = [nn.Conv2d(in_planes, out_planes, kernel_size, stride,
-                        (kernel_size - 1) // 2, bias=True)]
+    layers = [Conv2d(in_planes, out_planes, kernel_size, stride,
+                     (kernel_size - 1) // 2, bias=True,
+                     compute_dtype=compute_dtype)]
     if use_bn:
-        layers.append(nn.BatchNorm2d(out_planes, eps=1e-5, momentum=0.1))
+        layers.append(BatchNorm2d(out_planes, eps=1e-5, momentum=0.1))
     layers.append(nn.LeakyReLU(0.2))
     return nn.Sequential(*layers)
 
 
-def upconv2d(in_planes, out_planes, mode="bilinear"):
+def upconv2d(in_planes, out_planes, mode="bilinear", compute_dtype=None):
     """2x upsample (half-pixel centres) + reflection pad + 3x3 valid conv +
     LeakyReLU(0.2)."""
     return nn.Sequential(
         nn.Upsample(scale_factor=2, mode=mode, align_corners=False),
         nn.ReflectionPad2d(1),
-        nn.Conv2d(in_planes, out_planes, 3, 1, 0),
+        Conv2d(in_planes, out_planes, 3, 1, 0, compute_dtype=compute_dtype),
         nn.LeakyReLU(0.2),
     )
 
 
 def decoder2d(nlayers, nc_input, nc_final, nc_min=8, use_bn=True,
-              upconv_mode="bilinear"):
+              upconv_mode="bilinear", compute_dtype=None):
     """nlayers of (upconv + conv-bn block), halving channels down to
-    nc_min, then a final 3x3 conv to nc_final."""
+    nc_min, then a final 3x3 conv to nc_final (in compute_dtype: the
+    caller casts it back, as the JAX package's Decoder2d does)."""
     layers = []
     nc_output = nc_input
     for _ in range(nlayers):
         nc_in = nc_output
         if nc_output // 2 >= nc_min:
             nc_output = nc_output // 2
-        layers.append(upconv2d(nc_in, nc_output, upconv_mode))
-        layers.append(conv2d(nc_output, nc_output, use_bn=use_bn))
-    layers.append(nn.Conv2d(nc_output, nc_final, 3, 1, 1))
+        layers.append(upconv2d(nc_in, nc_output, upconv_mode, compute_dtype))
+        layers.append(conv2d(nc_output, nc_output, use_bn=use_bn,
+                             compute_dtype=compute_dtype))
+    layers.append(Conv2d(nc_output, nc_final, 3, 1, 1,
+                         compute_dtype=compute_dtype))
     return nn.Sequential(*layers)

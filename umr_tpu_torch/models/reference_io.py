@@ -4,6 +4,13 @@ umr_tpu/models/reference_io.py::build_key_map (a test pins the two equal).
 
 Each entry is (flax_path_tuple, torch_key, transform). The port's module
 names are the torch keys, so the map carries flax weights into the port.
+
+use_texture=False drops the texture predictor's rows. Stage 2's single camera
+(multiple_cam_hypo=False), which the JAX package's map does not cover,
+maps its `Camera` to the reference's cub_mesh.py names
+(cam_predictor.fc_layer.*, cam_predictor.{quat,scale,trans}_predictor.*,
+cam_predictor.prob_predictor). az_ele_quat keeps every row (its unused
+linear layer is quat_predictor.pred_layer, 3 wide).
 """
 
 from __future__ import annotations
@@ -140,42 +147,59 @@ def _texture_maps(n_upconv=5):
     return pm, sm
 
 
-def build_key_map(stage=2, num_cams=8, n_upconv=5):
+def _camera_maps(flax_prefix, torch_prefix):
+    """One `Camera` head: its fc stack and its four linear heads."""
+    pm = _fc_stack((*flax_prefix, "fc_layer"), f"{torch_prefix}.fc_layer", 2)
+    sm = _fc_stack_stats((*flax_prefix, "fc_layer"),
+                         f"{torch_prefix}.fc_layer", 2)
+    pm += _linear((*flax_prefix, "quat", "Dense_0"),
+                  f"{torch_prefix}.quat_predictor.pred_layer")
+    pm += _linear((*flax_prefix, "prob"), f"{torch_prefix}.prob_predictor")
+    pm += _linear((*flax_prefix, "scale", "Dense_0"),
+                  f"{torch_prefix}.scale_predictor.pred_layer")
+    pm += _linear((*flax_prefix, "trans", "Dense_0"),
+                  f"{torch_prefix}.trans_predictor.pred_layer")
+    return pm, sm
+
+
+def build_key_map(stage=2, num_cams=8, n_upconv=5, use_texture=True,
+                  multiple_cam_hypo=True):
     """Returns (params_map, stats_map, buffers_map, template_map): lists of
-    (flax_path_tuple, torch_key, transform)."""
+    (flax_path_tuple, torch_key, transform) of the stage's model in the
+    given variant."""
     pm, sm = _encoder_maps()
-    tpm, tsm = _texture_maps(n_upconv)
-    pm += tpm
-    sm += tsm
+    if use_texture:
+        tpm, tsm = _texture_maps(n_upconv)
+        pm += tpm
+        sm += tsm
+    buffers = []
 
     if stage == 2:
         pm += _linear(("shape_predictor", "Dense_0"),
                       "shape_predictor.pred_layer")
         cp = "cam_predictor"
-        pm += _fc_stack((cp, "fc"), f"{cp}.fc", 2, use_bn=False)
-        pm += _linear((cp, "scale_predictor", "Dense_0"),
-                      f"{cp}.scale_predictor.pred_layer")
-        pm += _linear((cp, "trans_predictor", "Dense_0"),
-                      f"{cp}.trans_predictor.pred_layer")
-        pm += _linear((cp, "prob_predictor"), f"{cp}.prob_predictor")
-        pm += _linear((cp, "quat_predictor", "Dense_0"),
-                      f"{cp}.quat_predictor.pred_layer")
-        for i in range(num_cams):
-            c = (cp, f"camera_{i}")
-            tc = f"{cp}.camera_predictor.{i}"
-            pm += _fc_stack((*c, "fc_layer"), f"{tc}.fc_layer", 2)
-            sm += _fc_stack_stats((*c, "fc_layer"), f"{tc}.fc_layer", 2)
-            pm += _linear((*c, "quat", "Dense_0"),
-                          f"{tc}.quat_predictor.pred_layer")
-            pm += _linear((*c, "prob"), f"{tc}.prob_predictor")
-            pm += _linear((*c, "scale", "Dense_0"),
-                          f"{tc}.scale_predictor.pred_layer")
-            pm += _linear((*c, "trans", "Dense_0"),
-                          f"{tc}.trans_predictor.pred_layer")
-        buffers = [
-            (("cam_predictor", "cam_biases"),
-             "cam_predictor.cam_biases", T_COPY),
-        ]
+        if not multiple_cam_hypo:
+            cpm, csm = _camera_maps((cp,), cp)
+            pm += cpm
+            sm += csm
+        else:
+            pm += _fc_stack((cp, "fc"), f"{cp}.fc", 2, use_bn=False)
+            pm += _linear((cp, "scale_predictor", "Dense_0"),
+                          f"{cp}.scale_predictor.pred_layer")
+            pm += _linear((cp, "trans_predictor", "Dense_0"),
+                          f"{cp}.trans_predictor.pred_layer")
+            pm += _linear((cp, "prob_predictor"), f"{cp}.prob_predictor")
+            pm += _linear((cp, "quat_predictor", "Dense_0"),
+                          f"{cp}.quat_predictor.pred_layer")
+            for i in range(num_cams):
+                cpm, csm = _camera_maps((cp, f"camera_{i}"),
+                                        f"{cp}.camera_predictor.{i}")
+                pm += cpm
+                sm += csm
+            buffers = [
+                (("cam_predictor", "cam_biases"),
+                 "cam_predictor.cam_biases", T_COPY),
+            ]
     else:
         # stage-1 MLP shape head (ref: cub_mesh_s1.py:157-180)
         for j, ti in enumerate((0, 2, 4, 6, 8)):
@@ -187,7 +211,6 @@ def build_key_map(stage=2, num_cams=8, n_upconv=5):
                       "scale_predictor.pred_layer")
         pm += _linear(("trans_predictor", "Dense_0"),
                       "trans_predictor.pred_layer")
-        buffers = []
 
     template = [(("mean_v",), "mean_v", T_COPY)]
     return pm, sm, buffers, template

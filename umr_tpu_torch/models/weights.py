@@ -23,17 +23,29 @@ WEIGHTS_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
 _REFERENCE_ONLY = ("texture_predictor.uv_sampler", "noise")
 
 
-def _maps(stage=2, num_cams=8, n_upconv=5):
-    pm, sm, bm, tm = build_key_map(stage, num_cams, n_upconv)
+def _maps(stage=2, num_cams=8, n_upconv=5, **variant):
+    pm, sm, bm, tm = build_key_map(stage, num_cams, n_upconv, **variant)
     return pm + sm + bm + tm
 
 
-def state_dict_from_flax(flat, num_cams=8, n_upconv=5, stage=2):
+def model_variant(model):
+    """The key map's arguments for a MeshNet or MeshNetS1: (stage,
+    num_cams, variant keywords)."""
+    stage = 1 if type(model).__name__ == "MeshNetS1" else 2
+    multi = getattr(model, "multiple_cam_hypo", True)
+    num_cams = (len(model.cam_predictor.camera_predictor)
+                if stage == 2 and multi else 0)
+    return stage, num_cams, dict(use_texture=model.use_texture,
+                                 multiple_cam_hypo=multi)
+
+
+def state_dict_from_flax(flat, num_cams=8, n_upconv=5, stage=2, **variant):
     """{'encoder/resnet/conv1/kernel': array, ..., 'mean_v': array} ->
     {torch_key: tensor} for every mapped key of the stage's model
-    (MeshNet for 2, MeshNetS1 for 1) present in `flat`."""
+    (MeshNet for 2, MeshNetS1 for 1) in the variant (build_key_map's
+    use_texture, multiple_cam_hypo) present in `flat`."""
     sd = {}
-    for path, tkey, tf in _maps(stage, num_cams, n_upconv):
+    for path, tkey, tf in _maps(stage, num_cams, n_upconv, **variant):
         key = "/".join(path)
         if key in flat:
             arr = to_torch_layout(np.asarray(flat[key], np.float32), tf)
@@ -98,8 +110,8 @@ def _without_bn_stats(model, sd, path):
 
 
 def load_checkpoint(model, path):
-    """Load a .pth into `model` (MeshNet or MeshNetS1): either flax-path
-    keys (the JAX package's trainer output, mapped by
+    """Load a .pth into `model` (MeshNet or MeshNetS1, any variant):
+    either flax-path keys (the JAX package's trainer output, mapped by
     state_dict_from_flax) or torch keys (the port's own or a reference
     pred_net_*.pth). One without BatchNorm statistics loads with a warning
     and keeps the model's init statistics, as the JAX package's load_pth
@@ -108,13 +120,11 @@ def load_checkpoint(model, path):
     if any("/" in k for k in raw):
         flat = {k: v.numpy() for k, v in raw.items()
                 if not k.startswith("_meta/")}
-        stage = 2 if hasattr(model, "cam_predictor") else 1
-        num_cams = (len(model.cam_predictor.camera_predictor) if stage == 2
-                    else 0)
+        stage, num_cams, variant = model_variant(model)
         n_up = sum(1 for k in flat
                    if k.startswith("texture_predictor/decoder/UpConvBlock_")
                    and k.endswith("/kernel"))
-        sd = state_dict_from_flax(flat, num_cams, n_up, stage)
+        sd = state_dict_from_flax(flat, num_cams, n_up, stage, **variant)
         # a flax export carries params, BN stats and mean_v, not buffers
         return load_into(model, sd, allow_missing=(
             "cam_biases", *_without_bn_stats(model, sd, path)))

@@ -51,14 +51,20 @@ def axis_angle_to_quat(axis, angle):
 
 def ang2quat(angles):
     """Tanh-squashed (azimuth, elev, cyc) angles [B, 3] -> quaternions
-    [B, 4] (the CUB ranges pi/6, pi/2, pi/3)."""
+    [B, 4] (the CUB ranges pi/6, pi/2, pi/3): q_cyc (about z) * q_elev
+    (about x) * q_az (about y), the Hamilton products of the three axis
+    rotations written out without their zero terms (so the values are
+    the products', in a third of the ops, and no constant is copied to
+    the angles' device)."""
     ang = torch.tanh(angles)
-    ey, ex, ez = (angles.new_tensor(v) for v in
-                  ((0.0, 1.0, 0.0), (1.0, 0.0, 0.0), (0.0, 0.0, 1.0)))
-    q_az = axis_angle_to_quat(ey, math.pi / 6 * ang[..., 0])
-    q_el = axis_angle_to_quat(ex, math.pi / 2 * ang[..., 1])
-    q_cr = axis_angle_to_quat(ez, math.pi / 3 * ang[..., 2])
-    return hamilton_product(q_cr, hamilton_product(q_el, q_az))
+    half = [(scale * ang[..., i]) / 2.0 for i, scale in
+            enumerate((math.pi / 6, math.pi / 2, math.pi / 3))]
+    c1, s1 = torch.cos(half[0]), torch.sin(half[0])       # azimuth, y
+    c2, s2 = torch.cos(half[1]), torch.sin(half[1])       # elevation, x
+    c3, s3 = torch.cos(half[2]), torch.sin(half[2])       # cyclo, z
+    w, x, y, z = c2 * c1, s2 * c1, c2 * s1, s2 * s1       # q_elev * q_az
+    return torch.stack([c3 * w - s3 * z, c3 * x - s3 * y, c3 * y + s3 * x,
+                        c3 * z + s3 * w], dim=-1)
 
 
 def rotate_cam(cam, angles_deg, axis=(0.0, 1.0, 0.0)):

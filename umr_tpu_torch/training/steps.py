@@ -38,6 +38,25 @@ under exact autograd, unmerged, as the JAX package's XLA paths; stage 1
 then renders its seen mask and a detached texture render with p2f
 apart, as the JAX package's fallback does.
 
+The flag variants, as the JAX package's steps have them:
+  * use_texture=False: no texture flow, LPIPS, dt, cycle or hard pass.
+    Stage 2's pass 1 is the mask-only hypothesis fold (multi_mask_loss,
+    "s2.pass1_fold"), its GAN view renders T2=1 ones ("s2.pass3_gan")
+    and its part groups render apart on main_bins ("s2.pass3_parts",
+    where main_bins is also computed); stage 1's pass 1 is a mask-only
+    seen render ("s1.pass1_mask").
+  * use_gan=False: no unseen view and no GAN loss (the discriminator is
+    kept, with no gradient); stage 2's part groups render apart on
+    main_bins ("s2.pass3_parts").
+  * bf16: the convs of the encoder, the texture decoder and LPIPS in
+    bfloat16 (models/net_blocks.py); nothing bfloat16 reaches a render.
+  * az_ele_quat: the hypotheses' QuatHeadAzEle (models/heads.py).
+On the kernels' route an s2 step then launches (forward + backward):
+3 + 2 by default, with bf16 or az_ele_quat; 4 + 3 without the GAN;
+4 + 4 without texture; 3 + 3 without either. An s1 step: 3 (1 with p2f)
++ 2 by default or with bf16; 2 (1) + 1 without the GAN; 2 (0) + 2
+without texture.
+
 Random draws (the VAE noise, the camera hypothesis, the GAN view angles)
 come from the state's torch.Generator unless injected (`draws`).
 
@@ -63,7 +82,8 @@ from torch.profiler import record_function
 
 from ..config import Config, check_supported, resolve_device
 from ..losses.composite import (PartMatchingLoss, corr_loss_chamfer,
-                                gan_loss, multi_mask_texture_render)
+                                gan_loss, multi_mask_loss,
+                                multi_mask_texture_render)
 from ..losses.losses import (cam_diversity_loss, deform_l2reg, flatten_loss,
                              laplacian_loss, neg_iou_loss, sym_reg,
                              tex_cycle_loss, texture_dt_loss)
@@ -112,6 +132,13 @@ def _renderers(cfg: Config, impl):
     renderer = SoftRenderer(render_type=cfg.renderer_type, **common)
     return (renderer, renderer.ambient_light_only(),
             SoftRenderer(render_type="hard", **common))
+
+
+def _compute_dtype(cfg: Config):
+    """--bf16: the convs of the encoder, the texture decoder and LPIPS
+    compute in bfloat16; parameters, BatchNorm, the heads, the losses and
+    the rasterizer stay float32 (models/net_blocks.py)."""
+    return torch.bfloat16 if cfg.bf16 else None
 
 
 def _same_bins(a, b):
@@ -231,18 +258,15 @@ def build_s2_step(cfg: Config, template, part_loss: PartMatchingLoss,
     step_fn(state, batch, draws=None) -> (state, scalars): batch is the
     trainer's prepare_batch dict (numpy or tensors); draws optionally
     injects 'eps' [B,z_dim], 'sample_inds' [B,1] and 'angles' [B]."""
-    if cfg.bf16:
-        raise NotImplementedError("--bf16 is not ported")
-    if not (cfg.use_texture and cfg.use_gan):
-        raise NotImplementedError("the port's s2 step trains with texture "
-                                  "and GAN (use_texture, use_gan)")
     check_supported(cfg)
     device = resolve_device(device)
     model = MeshNet(template, input_size=cfg.image_size, nz_feat=cfg.nz_feat,
-                    z_dim=cfg.z_dim, num_hypo_cams=cfg.num_hypo_cams)
+                    z_dim=cfg.z_dim, num_hypo_cams=cfg.num_hypo_cams,
+                    use_texture=cfg.use_texture, az_ele_quat=cfg.az_ele_quat,
+                    compute_dtype=_compute_dtype(cfg))
     disc = Discriminator(lambda_=cfg.grl_wt, in_dim=3,
                          img_size=cfg.image_size)
-    lpips = LPIPSAlex()
+    lpips = LPIPSAlex(compute_dtype=_compute_dtype(cfg))
     model, disc, lpips = (m.to(device) for m in (model, disc, lpips))
     renderer, tex_renderer, hard_renderer = _renderers(cfg, impl)
     dis_renderer = tex_renderer     # ambient only (ref train_s2.py:105-106)
@@ -258,6 +282,12 @@ def build_s2_step(cfg: Config, template, part_loss: PartMatchingLoss,
                       and _same_bins(hard_renderer, dis_renderer))
     tex_bins_ok = _same_bins(tex_renderer, hard_renderer)
     init_fn = _make_init_fn(cfg, model, disc, lpips, device)
+    # pass 3's ranges: with every flag at its default the part groups and
+    # the GAN's view are one merged pass (two renders off the kernels'
+    # route); a variant renders them apart
+    default = cfg.use_texture and cfg.use_gan
+    gan_range = "s2.pass3_merged" if default else "s2.pass3_gan"
+    part_range = "s2.pass3_merged" if default else "s2.pass3_parts"
 
     def loss_fn(state: TrainState, batch, draws):
         with record_function("s2.model"):
@@ -279,19 +309,28 @@ def build_s2_step(cfg: Config, template, part_loss: PartMatchingLoss,
         # face)
         main_bins = None
         if hard_renderer.uses_kernel(device):
-            with record_function("s2.pass2_hard"):
+            with record_function("s2.pass2_hard" if cfg.use_texture
+                                 else part_range):
                 main_bins = hard_renderer.compute_bins(pred_vs, faces,
                                                        proj_cam)
 
-        tex_flow = outputs["tex_flow"]
-        tex = sample_textures(tex_flow, imgs)
-        T = tex.shape[2]
-        tex = tex.reshape(B, tex.shape[1], T * T, 3)
-        # pass 1: silhouettes (live geometry) + textures (texels only)
+        tex = None
+        if cfg.use_texture:
+            tex_flow = outputs["tex_flow"]
+            tex = sample_textures(tex_flow, imgs)
+            T = tex.shape[2]
+            tex = tex.reshape(B, tex.shape[1], T * T, 3)
+        # pass 1: silhouettes (live geometry) + textures (texels only);
+        # without texture the silhouettes alone, mask only
         with record_function("s2.pass1_fold"):
-            mask_all_hypo, texture_pred = multi_mask_texture_render(
-                renderer, tex_renderer, pred_vs, faces, cams_all, tex,
-                chunks=cfg.hypo_render_chunks)
+            if cfg.use_texture:
+                mask_all_hypo, texture_pred = multi_mask_texture_render(
+                    renderer, tex_renderer, pred_vs, faces, cams_all, tex,
+                    chunks=cfg.hypo_render_chunks)
+            else:
+                _, mask_all_hypo = multi_mask_loss(
+                    renderer, pred_vs, faces, cams_all, cam_probs, masks,
+                    chunks=cfg.hypo_render_chunks)
 
         masks_rep = masks.repeat_interleave(K, 0)
         mloss = neg_iou_loss(mask_all_hypo, masks_rep, avg=False)
@@ -305,47 +344,51 @@ def build_s2_step(cfg: Config, template, part_loss: PartMatchingLoss,
                  + sc["deform_loss"] * cfg.deform_reg_wt
                  + sc["cam_div_loss"] * cfg.ent_loss_wt)
 
-        # perceptual loss, hypothesis-weighted by the detached probs; the
-        # predicted masks stay live
-        pred_masked = texture_pred * mask_all_hypo[..., None]
-        gt_masked = imgs.repeat_interleave(K, 0) * masks_rep[..., None]
-        with record_function("s2.lpips"):
-            dist = state.lpips(2 * pred_masked - 1, 2 * gt_masked - 1)
-        sc["tex_loss"] = (dist.reshape(B, K)
-                          * cam_probs.detach()).sum(1).mean()
-        sc["tex_dt_loss"] = texture_dt_loss(tex_flow, batch["dts_barrier"])
-        # pass 2: hard visibility at the sampled camera. Its p2f is all
-        # zeros (the reference's s2 quirk: the cycle target comes from the
-        # hard renderer, which writes no p2f)
-        with record_function("s2.pass2_hard"):
-            hard_out = hard_renderer.render(pred_vs.detach(), faces,
-                                            proj_cam, bins=main_bins)
-        face_ids = hard_out.aggr[:, 1].reshape(B, -1)
-        cycle_p2f = hard_out.p2f
-        if cfg.cycle_soft_p2f:
-            # the opt-in fix of that quirk: the soft render's real p2f at
-            # the sampled camera, stage 1's target; forward only
-            with record_function("s2.pass2_p2f"):
-                cycle_p2f = tex_renderer.render(
-                    pred_vs.detach(), faces, proj_cam, tex.detach(),
-                    need_p2f=True, tex_grads=False,
-                    bins=main_bins if tex_bins_ok else None).p2f
-        sc["tex_cycle_loss"] = tex_cycle_loss(
-            tex_flow, cycle_p2f.detach(), face_ids.detach())[0]
-        sc["uv_flow_area"] = uv_flow_area(outputs["uvimage_pred"])
-        total = (total + sc["tex_loss"] * cfg.tex_loss_wt
-                 + sc["tex_dt_loss"] * cfg.tex_dt_loss_wt
-                 + sc["tex_cycle_loss"] * cfg.tex_cycle_loss_wt)
+        if cfg.use_texture:
+            # perceptual loss, hypothesis-weighted by the detached probs;
+            # the predicted masks stay live
+            pred_masked = texture_pred * mask_all_hypo[..., None]
+            gt_masked = imgs.repeat_interleave(K, 0) * masks_rep[..., None]
+            with record_function("s2.lpips"):
+                dist = state.lpips(2 * pred_masked - 1, 2 * gt_masked - 1)
+            sc["tex_loss"] = (dist.reshape(B, K)
+                              * cam_probs.detach()).sum(1).mean()
+            sc["tex_dt_loss"] = texture_dt_loss(tex_flow,
+                                                batch["dts_barrier"])
+            # pass 2: hard visibility at the sampled camera. Its p2f is
+            # all zeros (the reference's s2 quirk: the cycle target comes
+            # from the hard renderer, which writes no p2f)
+            with record_function("s2.pass2_hard"):
+                hard_out = hard_renderer.render(pred_vs.detach(), faces,
+                                                proj_cam, bins=main_bins)
+            face_ids = hard_out.aggr[:, 1].reshape(B, -1)
+            cycle_p2f = hard_out.p2f
+            if cfg.cycle_soft_p2f:
+                # the opt-in fix of that quirk: the soft render's real p2f
+                # at the sampled camera, stage 1's target; forward only
+                with record_function("s2.pass2_p2f"):
+                    cycle_p2f = tex_renderer.render(
+                        pred_vs.detach(), faces, proj_cam, tex.detach(),
+                        need_p2f=True, tex_grads=False,
+                        bins=main_bins if tex_bins_ok else None).p2f
+            sc["tex_cycle_loss"] = tex_cycle_loss(
+                tex_flow, cycle_p2f.detach(), face_ids.detach())[0]
+            sc["uv_flow_area"] = uv_flow_area(outputs["uvimage_pred"])
+            total = (total + sc["tex_loss"] * cfg.tex_loss_wt
+                     + sc["tex_dt_loss"] * cfg.tex_dt_loss_wt
+                     + sc["tex_cycle_loss"] * cfg.tex_cycle_loss_wt)
 
         part_segs = normalize_part_segs(batch["part_prob"], masks)
-        angles = draws.get("angles")
-        if angles is None:
-            angles = torch.randint(0, 180, (B,), generator=state.generator,
-                                   device=device)
-        random_cams = rotate_cam(proj_cam, angles)
+        if cfg.use_gan:
+            angles = draws.get("angles")
+            if angles is None:
+                angles = torch.randint(0, 180, (B,),
+                                       generator=state.generator,
+                                       device=device)
+            random_cams = rotate_cam(proj_cam, angles)
         # pass 3: the part groups and the GAN's unseen view in one render
-        with record_function("s2.pass3_merged"):
-            if main_bins is not None and part_render_eq:
+        if default and main_bins is not None and part_render_eq:
+            with record_function("s2.pass3_merged"):
                 groups = part_loss.texture_groups(B)
                 n_g = len(groups)
                 gan_bins = dis_renderer.compute_bins(pred_vs, faces,
@@ -361,16 +404,24 @@ def build_s2_step(cfg: Config, template, part_loss: PartMatchingLoss,
                     [rgb[i * B:(i + 1) * B] for i in range(n_g)])
                 unseen = rgb[n_g * B:]
                 p_loss = part_loss.loss_from_projs(projs, part_segs)[0]
-            else:
-                unseen = dis_renderer.render(pred_vs, faces, random_cams,
-                                             tex.detach(),
-                                             tex_grads=False).rgba[..., :3]
+        else:
+            # apart: the GAN's view (untextured: T2=1 ones), then each
+            # part group on main_bins
+            if cfg.use_gan:
+                with record_function(gan_range):
+                    unseen = dis_renderer.render(
+                        pred_vs, faces, random_cams,
+                        None if tex is None else tex.detach(),
+                        tex_grads=False).rgba[..., :3]
+            with record_function(part_range):
                 p_loss = part_loss(pred_vs, faces, proj_cam, part_segs,
-                                   bins=main_bins if part_bins_ok else None)[0]
+                                   bins=main_bins if part_bins_ok
+                                   else None)[0]
 
-        sc["gan_loss"], sc["acc_gan"] = gan_loss(state.disc,
-                                                 batch["real_imgs"], unseen)
-        total = total + sc["gan_loss"] * cfg.gan_loss_wt
+        if cfg.use_gan:
+            sc["gan_loss"], sc["acc_gan"] = gan_loss(
+                state.disc, batch["real_imgs"], unseen)
+            total = total + sc["gan_loss"] * cfg.gan_loss_wt
         sc["part_loss"] = p_loss
         total = total + p_loss * cfg.prob_loss_wt
 
@@ -409,25 +460,22 @@ def build_s1_step(cfg: Config, template, device=None, impl="auto"):
     sample [B,z_dim] of the eval-mode model, no gradients.
     template_update_fn(state, feat_mean [z_dim]) -> state with
     mean_v += shape_predictor(feat_mean), in place."""
-    if cfg.bf16:
-        raise NotImplementedError("--bf16 is not ported")
-    if not cfg.use_gan:
-        raise NotImplementedError("the port's s1 step trains with the GAN "
-                                  "(use_gan)")
     check_supported(cfg, stage=1)
     device = resolve_device(device)
     model = MeshNetS1(template, input_size=cfg.image_size,
-                      nz_feat=cfg.nz_feat, z_dim=cfg.z_dim)
+                      nz_feat=cfg.nz_feat, z_dim=cfg.z_dim,
+                      use_texture=cfg.use_texture,
+                      compute_dtype=_compute_dtype(cfg))
     # the GAN judges silhouettes: the predicted seen mask is its "real"
     disc = Discriminator(lambda_=cfg.grl_wt, in_dim=1,
                          img_size=cfg.image_size)
-    lpips = LPIPSAlex()
+    lpips = LPIPSAlex(compute_dtype=_compute_dtype(cfg))
     model, disc, lpips = (m.to(device) for m in (model, disc, lpips))
     renderer, tex_renderer, hard_renderer = _renderers(cfg, impl)
     faces = torch.as_tensor(template.faces, device=device)
     lap = torch.as_tensor(template.laplacian, device=device)
     flat_idx = torch.as_tensor(template.flatten_idx, device=device)
-    fused = tex_renderer.uses_kernel(device)
+    fused = cfg.use_texture and tex_renderer.uses_kernel(device)
     share_bins = fused and _same_bins(tex_renderer, hard_renderer)
     init_fn = _make_init_fn(cfg, model, disc, lpips, device)
 
@@ -440,13 +488,15 @@ def build_s1_step(cfg: Config, template, device=None, impl="auto"):
         pred_vs = (symmetrize(model.mean_v, template)[None]
                    + symmetrize(outputs["delta_v"], template))
         proj_cam = outputs["cam"]
-        tex_flow = outputs["tex_flow"]
-        tex = sample_textures(tex_flow, imgs)
-        T = tex.shape[2]
-        tex = tex.reshape(B, tex.shape[1], T * T, 3)
+        if cfg.use_texture:
+            tex_flow = outputs["tex_flow"]
+            tex = sample_textures(tex_flow, imgs)
+            T = tex.shape[2]
+            tex = tex.reshape(B, tex.shape[1], T * T, 3)
 
         main_bins = None
-        with record_function("s1.pass1_fused"):
+        with record_function("s1.pass1_fused" if cfg.use_texture
+                             else "s1.pass1_mask"):
             if share_bins:
                 main_bins = hard_renderer.compute_bins(pred_vs, faces,
                                                        proj_cam)
@@ -461,9 +511,10 @@ def build_s1_step(cfg: Config, template, device=None, impl="auto"):
             else:
                 mask_pred_seen = renderer.render(
                     pred_vs, faces, proj_cam, mask_only=True).rgba[..., 3]
-                tex_out = tex_renderer.render(
-                    pred_vs.detach(), faces, proj_cam.detach(), tex,
-                    need_p2f=True)
+                if cfg.use_texture:
+                    tex_out = tex_renderer.render(
+                        pred_vs.detach(), faces, proj_cam.detach(), tex,
+                        need_p2f=True)
 
         sc = {"mask_loss": neg_iou_loss(mask_pred_seen, masks),
               "tri_loss": laplacian_loss(pred_vs, lap).mean(),
@@ -479,35 +530,40 @@ def build_s1_step(cfg: Config, template, device=None, impl="auto"):
         if epoch > cfg.update_template_freq:
             total = total + sc["deform_loss"] * cfg.deform_reg_wt
 
-        texture_pred = tex_out.rgba[..., :3]
-        with record_function("s1.lpips"):
-            sc["tex_loss"] = state.lpips(
-                2 * (texture_pred * mask_pred_seen[..., None]) - 1,
-                2 * (imgs * masks[..., None]) - 1).mean()
-        sc["tex_dt_loss"] = texture_dt_loss(tex_flow, batch["dts_barrier"])
-        with record_function("s1.pass2_hard"):
-            hard_out = hard_renderer.render(pred_vs.detach(), faces,
-                                            proj_cam.detach(), bins=main_bins)
-        face_ids = hard_out.aggr[:, 1].reshape(B, -1)
-        sc["tex_cycle_loss"] = tex_cycle_loss(
-            tex_flow, tex_out.p2f.detach(), face_ids.detach())[0]
-        sc["uv_flow_area"] = uv_flow_area(outputs["uvimage_pred"])
-        total = (total + sc["tex_loss"] * cfg.tex_loss_wt
-                 + sc["tex_dt_loss"] * cfg.tex_dt_loss_wt
-                 + sc["tex_cycle_loss"] * cfg.tex_cycle_loss_wt)
+        if cfg.use_texture:
+            texture_pred = tex_out.rgba[..., :3]
+            with record_function("s1.lpips"):
+                sc["tex_loss"] = state.lpips(
+                    2 * (texture_pred * mask_pred_seen[..., None]) - 1,
+                    2 * (imgs * masks[..., None]) - 1).mean()
+            sc["tex_dt_loss"] = texture_dt_loss(tex_flow,
+                                                batch["dts_barrier"])
+            with record_function("s1.pass2_hard"):
+                hard_out = hard_renderer.render(
+                    pred_vs.detach(), faces, proj_cam.detach(),
+                    bins=main_bins)
+            face_ids = hard_out.aggr[:, 1].reshape(B, -1)
+            sc["tex_cycle_loss"] = tex_cycle_loss(
+                tex_flow, tex_out.p2f.detach(), face_ids.detach())[0]
+            sc["uv_flow_area"] = uv_flow_area(outputs["uvimage_pred"])
+            total = (total + sc["tex_loss"] * cfg.tex_loss_wt
+                     + sc["tex_dt_loss"] * cfg.tex_dt_loss_wt
+                     + sc["tex_cycle_loss"] * cfg.tex_cycle_loss_wt)
 
-        angles = draws.get("angles")
-        if angles is None:
-            angles = torch.randint(0, 180, (B,), generator=state.generator,
-                                   device=device)
-        random_cams = rotate_cam(proj_cam.detach(), angles)
-        with record_function("s1.pass3_gan"):
-            mask_unseen = renderer.render(pred_vs, faces, random_cams,
-                                          mask_only=True).rgba[..., 3]
-        sc["gan_loss"], sc["acc_gan"] = gan_loss(
-            state.disc, mask_pred_seen.detach()[..., None],
-            mask_unseen[..., None])
-        total = total + sc["gan_loss"] * cfg.gan_loss_wt
+        if cfg.use_gan:
+            angles = draws.get("angles")
+            if angles is None:
+                angles = torch.randint(0, 180, (B,),
+                                       generator=state.generator,
+                                       device=device)
+            random_cams = rotate_cam(proj_cam.detach(), angles)
+            with record_function("s1.pass3_gan"):
+                mask_unseen = renderer.render(pred_vs, faces, random_cams,
+                                              mask_only=True).rgba[..., 3]
+            sc["gan_loss"], sc["acc_gan"] = gan_loss(
+                state.disc, mask_pred_seen.detach()[..., None],
+                mask_unseen[..., None])
+            total = total + sc["gan_loss"] * cfg.gan_loss_wt
         sc["total_loss"] = total
         return total, sc
 

@@ -5,8 +5,10 @@ part-consistency overlay, and the first mesh (.obj). Images are written
 by visualizer.save_image_grid (PNG), meshes by obj_io.save_obj.
 
 Each dump makes these render calls, each one launch of the forward
-kernel on the card: the textured render (1), the mask render (1) and,
-with a part loss, one per texture group of its parts (2 for 4 parts).
+kernel on the card: the textured render (1; none for a model without
+texture, whose textured panels and mesh are skipped, as the JAX
+package's are), the mask render (1) and, with a part loss, one per
+texture group of its parts (2 for 4 parts).
 """
 
 from __future__ import annotations
@@ -26,10 +28,11 @@ from ..visualizer import save_image_grid
 N_VIS = 4     # images of the batch a dump shows
 
 
-def render_calls(num_parts=0):
+def render_calls(num_parts=0, use_texture=True):
     """The render calls (forward launches on the card) of one dump, with a
-    part loss of num_parts parts (0: none)."""
-    return 2 + -(-num_parts // 3)
+    part loss of num_parts parts (0: none); a model without texture
+    skips the textured render."""
+    return 1 + int(use_texture) + -(-num_parts // 3)
 
 
 def _np(x):
@@ -73,13 +76,15 @@ def make_visuals_fn(cfg, template, renderer_vis, part_loss=None,
         cam = out["cam"]
 
         vis = {}
-        tex = sample_textures(out["tex_flow"], imgs)
-        B, F, T = tex.shape[:3]
-        tex2 = tex.reshape(B, F, T * T, 3)
-        r = renderer_vis.render(verts, faces, cam, tex2)
-        vis["image_pred"] = _np(r.rgba[..., :3])
-        vis["uv_images"] = _np(grid_sample(imgs, out["uvimage_pred"]))
-        vis["mesh_0"] = (_np(verts[0]), template.faces, _np(tex2[0]))
+        B = imgs.shape[0]
+        if "tex_flow" in out:
+            tex = sample_textures(out["tex_flow"], imgs)
+            F, T = tex.shape[1:3]
+            tex2 = tex.reshape(B, F, T * T, 3)
+            r = renderer_vis.render(verts, faces, cam, tex2)
+            vis["image_pred"] = _np(r.rgba[..., :3])
+            vis["uv_images"] = _np(grid_sample(imgs, out["uvimage_pred"]))
+            vis["mesh_0"] = (_np(verts[0]), template.faces, _np(tex2[0]))
         rm = renderer_vis.render(verts, faces, cam)
         vis["mask_pred"] = _np(rm.rgba[..., 3:])
         vis["mask_gt"] = _np(torch.as_tensor(
