@@ -21,12 +21,16 @@ loader passed, with the trainers' visuals and --visualize) and the
 training flag variants (each s2 and s1 variant's step: bf16, without
 texture, without the GAN, az_ele_quat; the entry points under --bf16;
 test_iou on a one-camera, untextured model; the kernels at the
-variants' new shapes against the plain versions), checks that
+variants' new shapes against the plain versions) and data parallelism
+(train_s2.run in a one-rank NCCL group through parallel.launch; one s2
+and one s1 step with the template update on two ranks sharing the card
+over gloo, held against one process at the global batch), checks that
 each path went through the kernels, and times kernels,
 plain versions, the training steps and the handoff's entry points. Every
 run writes into a fresh temporary directory.
 
   python3 chip_smoke.py
+  python3 chip_smoke.py --cards N    # phase 17's steps on N cards (NCCL)
 
 Exits non-zero on any failure, and when no GPU is visible. The line
 before the last is the kernel record (JSON); the last line is
@@ -38,6 +42,8 @@ from __future__ import annotations
 import json
 import math
 import os
+import pickle
+import socket
 import subprocess
 import sys
 import tempfile
@@ -1511,6 +1517,469 @@ def flag_variants(dev, smi, template, tcfg, tloader, seg, pvi, part_loss,
     return rec
 
 
+# phase 17, data parallelism: the two-rank (gloo, one card) s2 step timed
+# after the checked one; each 2-rank step against one process. Both
+# steps are chaotic at full width: a 1e-6 relative perturbation of the
+# input images moves one process's own gradient to cosine 0.99774 (s2)
+# and 0.99664 (s1), the worst tensor to 0.36 and 0.15 of its norm, and
+# the scalars by 1.2e-4 and 4.3e-4 relative, while one process repeated
+# reads cosine 1 - 4e-12 (NVIDIA H100 80GB HBM3, 700 W; the two-rank
+# steps read 0.99773 and 0.99870, worst tensor 0.39 and 0.27, scalars
+# 4.6e-5 and 7.1e-5). The gradient bounds keep a margin over that; the
+# BatchNorm running statistics (global sums in another order, reading
+# 1.1e-6) and stage 1's mean_v after the template update (reading 1.2e-7)
+# are held tighter
+DP_TIMED = 3
+DP_COS = 0.99
+DP_REL = 0.6
+DP_STATS_RTOL = 1e-4
+DP_MEAN_V_ATOL = 1e-6
+DP_SCALARS_RTOL = 1e-3
+# 17d: train_s2.run on the spawned ranks to each num_iter here, a later run
+# resuming from the files of the one before; then DP_PROBES steps on the
+# first batch, the last one's loss (before its update) below the first
+# step's on it
+DP_TRAIN_RUNS = (2, 4)
+DP_PROBES = 3
+
+
+def no_tf32():
+    """Float32 matmuls and convolutions in float32 (the card's default
+    runs them in TF32): set in every process, the spawned ranks too."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def dp_rank_steps(specs):
+    """tests/torch_ranks.py::rank_steps with TF32 off, in a spawned rank
+    as in this process."""
+    from torch_ranks import rank_steps
+
+    no_tf32()
+    return rank_steps(specs)
+
+
+def dp_train_s2(cfg, loader, semantic, out):
+    """Phase 17a, on a rank of parallel.launch: train_s2.run on the rank's
+    card (its launches per step), then TIMED_STEPS timed steps on the
+    first batch and one more, whose loss (before its update) must lie
+    below the first step's on that batch. Appends the readings to out."""
+    import torch.distributed as dist
+
+    from umr_tpu_torch.experiments import train_s2
+    from umr_tpu_torch.training.trainer import prepare_batch
+
+    no_tf32()
+    zero_launches()
+    trainer = train_s2.run(cfg, loader, semantic=semantic)
+    torch.cuda.synchronize()
+    got = launches()
+    batch = prepare_batch(loader[0])
+    ms, times, state = timed_steps(trainer.step_fn, trainer.state, [batch],
+                                   TIMED_STEPS)
+    _, sc = trainer.step_fn(state, batch)
+    out.append(dict(backend=dist.get_backend(), world=dist.get_world_size(),
+                    device=str(next(state.model.parameters()).device),
+                    launches=got, step=state.step, history=trainer.history,
+                    last_total=sc["total_loss"].item(), ms=ms, times=times))
+
+
+def dp_train_rank(cfg, semantic):
+    """Phase 17d on a rank of the group: the synthetic category
+    (generate_dataset, two global batches) through CategoryLoader on the
+    rank's card, which gives the rank its block of each global batch,
+    and train_s2.run to each num_iter of DP_TRAIN_RUNS, every run after
+    the first resuming from the files of the one before; then DP_PROBES
+    steps on the first global batch's block. Returns per run the state's
+    step, the steps it took, its launches and the state digest; the
+    first step's loss and the last probe's (before its update); the
+    probes' digest."""
+    from torch_ranks import state_digest
+    from umr_tpu_torch.config import resolve_device
+    from umr_tpu_torch.data.synthetic_category import (CategoryLoader,
+                                                       generate_dataset)
+    from umr_tpu_torch.experiments import train_s2
+    from umr_tpu_torch.mesh import build_template
+    from umr_tpu_torch.training.trainer import prepare_batch
+
+    no_tf32()
+    data = generate_dataset(build_template(SUBDIVIDE, 1, 6), 2 * TRAIN_BATCH,
+                            seed=0, image_size=IMAGE_SIZE, batch=TRAIN_BATCH,
+                            device="cuda")
+
+    def loader():
+        return CategoryLoader(data, cfg.batch_size, seed=20, use_scops=True,
+                              device_data=True, device="cuda")
+
+    runs, ld, trainer = [], loader(), None
+    for n in DP_TRAIN_RUNS:
+        zero_launches()
+        trainer = train_s2.run(cfg.replace(num_iter=n), ld, semantic=semantic)
+        torch.cuda.synchronize()
+        runs.append(dict(step=trainer.state.step, steps=len(trainer.history),
+                         launches=launches(), digest=state_digest(
+                             trainer.state),
+                         losses=[h["total_loss"] for h in trainer.history]))
+    batch = prepare_batch(next(iter(loader())))   # the first run's first
+    assert batch["img"].device == resolve_device("cuda")
+    state = trainer.state
+    for _ in range(DP_PROBES):
+        state, sc = trainer.step_fn(state, batch)
+    return dict(runs=runs, first_total=runs[0]["losses"][0],
+                last_total=sc["total_loss"].item(),
+                probe_digest=state_digest(state))
+
+
+def dp_ranks(specs, train):
+    """Phase 17's work on each spawned rank: the steps of 17b and 17c
+    (dp_rank_steps), then 17d's training run (dp_train_rank)."""
+    return dp_rank_steps(specs), dp_train_rank(*train)
+
+
+def dp_cards_rank(out_dir, specs, train):
+    """dp_ranks on a rank that parallel.launch spawned (chip_smoke.py
+    --cards N), its readings pickled to out_dir/rank{r}.pkl."""
+    from umr_tpu_torch.parallel import rank_and_size
+
+    out = dp_ranks(specs, train)
+    with open(os.path.join(out_dir, f"rank{rank_and_size()[0]}.pkl"),
+              "wb") as f:
+        pickle.dump(out, f)
+
+
+def dp_train_cfg(tcfg):
+    """17d's configuration: phase 7's, logging every step, the part points
+    the category loader draws, a fresh checkpoint directory."""
+    return tcfg.replace(checkpoint_dir=tempfile.mkdtemp(), name="dp",
+                        print_freq=1, use_scops=True)
+
+
+def hold_train(outs, cfg, where, smi):
+    """17d's readings (dp_train_rank's, per rank): every run's steps and
+    resume, 3 forward + 2 backward launches a step on every rank, equal
+    states on every rank after each run and after the probes, one writer
+    of the run's files (one log line a step), a falling loss. Returns the
+    readings."""
+    r0 = outs[0]
+    run_dir = os.path.join(cfg.checkpoint_dir, cfg.name)
+    files = sorted(os.listdir(run_dir))
+    with open(os.path.join(run_dir, "loss_log.txt")) as f:
+        log = f.read().splitlines()
+    steps = [(r["step"], r["steps"]) for r in r0["runs"]]
+    want = [(n, n - m) for m, n in zip((0,) + DP_TRAIN_RUNS, DP_TRAIN_RUNS)]
+    equal = all(o["probe_digest"] == r0["probe_digest"] and
+                [r["digest"] for r in o["runs"]] ==
+                [r["digest"] for r in r0["runs"]] for o in outs)
+    msg = (f"17d: train_s2.run on {where} from the category loader's rank "
+           f"blocks: runs to num_iter {list(DP_TRAIN_RUNS)} (step, steps "
+           f"taken) {steps} (expected {want}); launches per rank and run "
+           f"{[[r['launches'] for r in o['runs']] for o in outs]} (expected "
+           "3 forward + 2 backward a step); states equal on every rank "
+           f"{equal}; files {files}; total_loss on the first batch "
+           f"{r0['first_total']:.4f} at step 1, {r0['last_total']:.4f} after "
+           f"{DP_TRAIN_RUNS[-1] + DP_PROBES - 1} updates [{smi}]")
+    print(msg, flush=True)
+    assert steps == want, msg
+    assert all(r["launches"] == (3 * r["steps"], 0, 2 * r["steps"])
+               for o in outs for r in o["runs"]), msg
+    assert equal, msg
+    assert files == ["loss_log.txt", "opts.log", "pred_net_latest.pth",
+                     "pred_state.pt", "stage_budget.json"], msg
+    assert sum("Training Loss" in line for line in log) == len(
+        DP_TRAIN_RUNS), msg
+    assert sum(line.startswith("(epoch") for line in log) == DP_TRAIN_RUNS[
+        -1], msg
+    assert (math.isfinite(r0["last_total"])
+            and r0["last_total"] < r0["first_total"]), msg
+    return dict(steps=steps, launches=[[list(r["launches"]) for r in o["runs"]]
+                                       for o in outs],
+                first_total=r0["first_total"], last_total=r0["last_total"])
+
+
+def dp_s2_spec(seg, pvi, batch, seed):
+    """One s2 step (phase 7's configuration) at a global batch of `batch`
+    as a tests/torch_ranks.py::rank_steps spec: a seeded batch and
+    global draws, on the card, then timed."""
+    from umr_tpu_torch.data import synthetic_batch
+    from umr_tpu_torch.training.trainer import prepare_batch
+
+    rng = np.random.RandomState(seed)
+    kw = dict(batch_size=batch, image_size=IMAGE_SIZE, img_size=IMAGE_SIZE,
+              subdivide=SUBDIVIDE, tex_size=6, num_hypo_cams=8)
+    return dict(stage=2, kw=kw, template=(SUBDIVIDE, 1, 6), seg=seg, pvi=pvi,
+                batch=prepare_batch(synthetic_batch(rng, batch, IMAGE_SIZE)),
+                draws=dict(
+                    eps=rng.normal(size=(batch, 350)).astype(np.float32),
+                    sample_inds=rng.randint(0, 8, size=(batch, 1)),
+                    angles=rng.randint(0, 180, size=batch)),
+                device="cuda", timed=DP_TIMED)
+
+
+def dp_specs(seg, pvi):
+    """Phase 17's steps as rank_steps specs: one s2 step at a global batch
+    of TRAIN_BATCH (dp_s2_spec), and the template update then one s1 step
+    at S1_BATCH (phase 10's configuration), seeded, on the card."""
+    from umr_tpu_torch.cli import S1_DEFAULTS
+    from umr_tpu_torch.data import synthetic_batch
+    from umr_tpu_torch.training.trainer import prepare_batch
+
+    rng = np.random.RandomState(18)
+    kw = dict(S1_DEFAULTS, batch_size=S1_BATCH, image_size=IMAGE_SIZE,
+              img_size=IMAGE_SIZE, subdivide=SUBDIVIDE, tex_size=6)
+    s1 = dict(stage=1, kw=kw, template=(SUBDIVIDE, 1, 6),
+              batch=prepare_batch(synthetic_batch(rng, S1_BATCH, IMAGE_SIZE),
+                                  use_scops=False),
+              draws=dict(
+                  eps=rng.normal(size=(S1_BATCH, 350)).astype(np.float32),
+                  angles=rng.randint(0, 180, size=S1_BATCH)),
+              template_batches=[prepare_batch(
+                  synthetic_batch(rng, S1_BATCH, IMAGE_SIZE),
+                  use_scops=False)],
+              device="cuda")
+    return dp_s2_spec(seg, pvi, TRAIN_BATCH, 17), s1
+
+
+def hold_ranks(one, ranks, where, smi):
+    """The ranks' s2 and s1 steps (rank_steps outputs, per rank) against
+    one process's on the same inputs: launches per rank, equal states on
+    every rank, gradients (DP_COS, DP_REL), scalars, BatchNorm statistics,
+    mean_v after stage 1's template update; the s2 step's ms with its
+    all_reduce share beside one process's. Returns the readings."""
+    rec = {}
+    for i, (label, want, batch) in enumerate((
+            ("s2", (3, 0, 2), TRAIN_BATCH), ("s1", (3, 1, 2), S1_BATCH))):
+        outs, ref = [r[i] for r in ranks], one[i]
+        r0 = outs[0]
+        total = math.sqrt(sum(float(np.sum(v.astype(np.float64) ** 2))
+                              for v in ref["grads"].values()))
+        worst = max(float(np.linalg.norm(r0["grads"][k] - v)
+                          / (np.linalg.norm(v) + 1e-6 * total))
+                    for k, v in ref["grads"].items())
+        x = np.concatenate([r0["grads"][k].ravel() for k in ref["grads"]]
+                           ).astype(np.float64)
+        y = np.concatenate([v.ravel() for v in ref["grads"].values()]
+                           ).astype(np.float64)
+        cos = float(x @ y / (np.linalg.norm(x) * np.linalg.norm(y)))
+        sc_rel = max(abs(r0["scalars"][k] - v) / max(abs(v), 1e-6)
+                     for k, v in ref["scalars"].items())
+        dstats = max(float(np.abs(r0["buffers"][k] - v).max()
+                           / (np.abs(v).max() + 1e-6))
+                     for k, v in ref["buffers"].items())
+        equal = all(o["digest"] == r0["digest"] for o in outs)
+        rec[label] = dict(launches=[list(o["launches"]) for o in outs],
+                          cosine=cos, worst_tensor=worst, scalars_rel=sc_rel,
+                          stats_rel=dstats, seconds=[o["seconds"]
+                                                     for o in outs])
+        timing = ""
+        if "step_ms" in ref:
+            rec[label].update(dp_times(ref, outs))
+            t = rec[label]
+            timing = (f"; the {len(outs)}-rank step median "
+                      f"{t['ranks_ms']:.2f} ms, one process "
+                      f"{t['one_process_ms']:.2f} ms; all_reduce "
+                      f"{100 * t['all_reduce_share']:.1f}% of the "
+                      f"{len(outs)}-rank step with each call between two "
+                      f"synchronizes ({t['wrapped_ms']:.2f} ms)")
+        msg = (f"{label}: {where} vs one process at batch {batch}: launches "
+               f"per rank {[o['launches'] for o in outs]} (expected {want}); "
+               f"gradient cosine {cos:.9f} (>= {DP_COS}), worst tensor "
+               f"{worst:.3e} (<= {DP_REL}); scalars within {sc_rel:.2e} "
+               f"relative (<= {DP_SCALARS_RTOL}); BatchNorm statistics within "
+               f"{dstats:.3e} of each buffer's largest (<= {DP_STATS_RTOL}); "
+               f"states equal on every rank {equal}{timing}; seconds per "
+               f"rank {rec[label]['seconds']}, one process {ref['seconds']} "
+               f"[{smi}]")
+        print(msg, flush=True)
+        assert all(o["launches"] == want for o in outs), msg
+        assert ref["launches"] == want, msg
+        assert equal, msg
+        assert cos >= DP_COS and worst <= DP_REL, msg
+        assert sc_rel <= DP_SCALARS_RTOL and dstats <= DP_STATS_RTOL, msg
+        if "mean_v" in ref:
+            dmv = float(np.abs(r0["mean_v"] - ref["mean_v"]).max())
+            msg = (f"s1 template update from {r0['count']} images on "
+                   f"{where}, before the step: mean_v within {dmv:.3e} of "
+                   f"one process's ({ref['count']} images; <= "
+                   f"{DP_MEAN_V_ATOL})")
+            print(msg, flush=True)
+            assert all(o["count"] == ref["count"] == batch for o in outs)
+            assert all(np.array_equal(o["mean_v"], r0["mean_v"])
+                       for o in outs), msg
+            assert dmv <= DP_MEAN_V_ATOL, msg
+            rec[label]["mean_v_max_abs"] = dmv
+    return rec
+
+
+def dp_times(ref, outs):
+    """The ranks' timed steps (each the slowest rank's) against one
+    process's, medians; the share of all_reduce in the ranks' steps, read
+    on the steps that time each all_reduce call between two
+    synchronizes."""
+    steps = [max(t) for t in zip(*(o["step_ms"] for o in outs))]
+    wrapped = [max(t) for t in zip(*(o["wrapped_ms"] for o in outs))]
+    comm = [np.mean(t) for t in zip(*(o["all_reduce_ms"] for o in outs))]
+    return dict(ranks_ms=float(np.median(steps)),
+                all_reduce_share=float(np.median(
+                    [c / m for c, m in zip(comm, wrapped)])),
+                wrapped_ms=float(np.median(wrapped)),
+                one_process_ms=float(np.median(ref["step_ms"])))
+
+
+def data_parallel(smi, tcfg, tloader, seg, pvi, phase7_ms):
+    """Phase 17, data parallelism (parallel/mesh.py). 17a: train_s2.run at
+    phase 7's configuration in a one-rank NCCL group that
+    parallel.launch joins from torchrun's environment, in this process
+    (3 + 2 launches per step, a falling loss, one writer of the run's
+    files). 17b and 17c: two ranks that parallel.spawn (launch's spawn
+    branch) starts on the one card (gloo), each from init_fn(seed +
+    rank) and then rank 0's state (parallel.replicate): one s2 step at a
+    global batch of 16, and the template update then one s1 step at 64,
+    the global draws injected, against one process at the global batch
+    on the same inputs (tests/torch_ranks.py::rank_steps both ways):
+    averaged gradients, scalars, BatchNorm statistics, mean_v; equal
+    states (weights, buffers, optimizer state, generator) on both ranks;
+    per-rank launches; the two-rank s2 step timed with its all_reduce
+    share. 17d, on the same two ranks: train_s2.run at a global batch of
+    16 from the category loader, resumed (hold_train). Returns the
+    readings."""
+    from umr_tpu_torch.parallel import launch, spawn
+
+    t_phase = time.perf_counter()
+    rec = {}
+    # 17a: launch's torchrun path, in this process (a group of one)
+    ckpt = tempfile.mkdtemp()
+    acfg = tcfg.replace(checkpoint_dir=ckpt, name="dp", print_freq=1)
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    env = dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", LOCAL_WORLD_SIZE="1",
+               MASTER_ADDR="localhost", MASTER_PORT=str(port))
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    box = []
+    try:
+        launch(dp_train_s2, acfg, tloader, (None, seg, pvi), box)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k)
+            else:
+                os.environ[k] = v
+    (a,) = box
+    first = a["history"][0]["total_loss"]
+    files = sorted(os.listdir(os.path.join(ckpt, "dp")))
+    with open(os.path.join(ckpt, "dp", "loss_log.txt")) as f:
+        log = f.read().splitlines()
+    msg = (f"17a: train_s2.run in a {a['world']}-rank {a['backend']} group "
+           f"on {a['device']}: {a['step']} steps, raster_fwd launches "
+           f"{a['launches'][0]}, raster_bwd {a['launches'][2]} in its "
+           f"{TRAIN_STEPS} steps (expected 3 and 2 per step); files {files}; "
+           f"total_loss on the first batch {first:.4f} at step 1, "
+           f"{a['last_total']:.4f} after {a['step'] - 1} updates; step "
+           f"median {a['ms']:.2f} ms over {TIMED_STEPS} steps (phase 7, no "
+           f"group: {phase7_ms:.2f} ms) [{smi}]")
+    print(msg, flush=True)
+    assert a["launches"] == (3 * TRAIN_STEPS, 0, 2 * TRAIN_STEPS), msg
+    assert (a["backend"], a["world"]) == ("nccl", 1), msg
+    assert files == ["loss_log.txt", "opts.log", "pred_net_latest.pth",
+                     "pred_state.pt", "stage_budget.json"], msg
+    assert sum("Training Loss" in line for line in log) == 1, msg
+    assert sum(line.startswith("(epoch") for line in log) == TRAIN_STEPS
+    assert math.isfinite(a["last_total"]) and a["last_total"] < first, msg
+    rec["a"] = dict(launches=list(a["launches"]), ms=a["ms"],
+                    times=a["times"], phase7_ms=phase7_ms, first_total=first,
+                    last_total=a["last_total"])
+
+    # 17b and 17c: the same inputs, one process and two ranks
+    s2, s1 = dp_specs(seg, pvi)
+    t0 = time.perf_counter()
+    one = dp_rank_steps([s2, s1])
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    dcfg = dp_train_cfg(tcfg)
+    ranks = spawn(dp_ranks, 2, [s2, s1], (dcfg, (None, seg, pvi)),
+                  device="cuda")
+    t2 = time.perf_counter()
+    rec["seconds"] = dict(a=t0 - t_phase, one_process=t1 - t0,
+                          two_ranks=t2 - t1)
+    print(f"17b/c/d: one process {t1 - t0:.1f} s, two ranks "
+          f"{t2 - t1:.1f} s", flush=True)
+    where = "2 ranks (gloo, one card)"
+    held = hold_ranks(one, [r[0] for r in ranks], where, smi)
+    rec["17b"], rec["17c"] = held["s2"], held["s1"]
+    rec["17d"] = hold_train([r[1] for r in ranks], dcfg, where, smi)
+    print("the two-rank times are a functional check: gloo copies every "
+          "all_reduce through the host, and both ranks share one card; "
+          "they are not the speed of two cards", flush=True)
+    rec["phase_s"] = time.perf_counter() - t_phase
+    print(f"phase 17: {rec['phase_s']:.1f} s [{smi}]", flush=True)
+    return rec
+
+
+def multi_card(n):
+    """python3 chip_smoke.py --cards N, on a machine with N cards: phase
+    17's steps on N ranks, one per card, that parallel.launch spawns as
+    the training entry points do (NCCL), against one process at the
+    global batch (hold_ranks), then the s2 step at N x TRAIN_BATCH (each
+    rank TRAIN_BATCH images) timed against one process at TRAIN_BATCH:
+    the images a second of N cards beside one card's; then 17d's
+    training run on the N ranks (hold_train)."""
+    from umr_tpu_torch.experiments.raster_bench import synthetic_semantic
+    from umr_tpu_torch.mesh import build_template
+    from umr_tpu_torch.config import Config
+    from umr_tpu_torch.ops import raster_kernel
+    from umr_tpu_torch.parallel import launch
+
+    if torch.cuda.device_count() != n:
+        raise SystemExit(f"chip_smoke --cards {n}: "
+                         f"{torch.cuda.device_count()} cards visible")
+    no_tf32()
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    smi = "; ".join(sh(["nvidia-smi", "--query-gpu=name,power.limit",
+                        "--format=csv,noheader"]).splitlines())
+    print(f"nvidia-smi: {smi}", flush=True)
+    raster_kernel.build()
+    seg, pvi = synthetic_semantic(build_template(SUBDIVIDE, 1, 6))
+    s2, s1 = dp_specs(seg, pvi)
+    wide = dp_s2_spec(seg, pvi, n * TRAIN_BATCH, 19)
+    t0 = time.perf_counter()
+    one = dp_rank_steps([s2, s1])
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    dcfg = dp_train_cfg(Config(
+        batch_size=TRAIN_BATCH, image_size=IMAGE_SIZE, subdivide=SUBDIVIDE,
+        tex_size=6, num_hypo_cams=8).sync_image_size())
+    out_dir = tempfile.mkdtemp()
+    launch(dp_cards_rank, out_dir, [s2, s1, wide], (dcfg, (None, seg, pvi)))
+    ranks = []
+    for r in range(n):
+        with open(os.path.join(out_dir, f"rank{r}.pkl"), "rb") as f:
+            ranks.append(pickle.load(f))
+    print(f"one process {t1 - t0:.1f} s, {n} ranks "
+          f"{time.perf_counter() - t1:.1f} s", flush=True)
+    where = f"{n} ranks (NCCL, {n} cards)"
+    rec = hold_ranks(one, [r[0][:2] for r in ranks], where, smi)
+    outs = [r[0][2] for r in ranks]
+    assert all(o["launches"] == (3, 0, 2) for o in outs)
+    assert all(o["digest"] == outs[0]["digest"] for o in outs)
+    rec["wide"] = dp_times(one[0], outs)
+    per_s = {"1": TRAIN_BATCH / rec["wide"]["one_process_ms"] * 1e3,
+             str(n): n * TRAIN_BATCH / rec["wide"]["ranks_ms"] * 1e3}
+    rec["wide"]["images_per_s"] = per_s
+    w = rec["wide"]
+    print(f"s2 at {TRAIN_BATCH} images a card: {n} cards {w['ranks_ms']:.2f} "
+          f"ms a step, {per_s[str(n)]:.1f} images/s; one card "
+          f"{w['one_process_ms']:.2f} ms, {per_s['1']:.1f} images/s; "
+          f"all_reduce {100 * w['all_reduce_share']:.1f}% of the step with "
+          f"each call between two synchronizes ({w['wrapped_ms']:.2f} ms) "
+          f"[{smi}]", flush=True)
+    rec["17d"] = hold_train([r[1] for r in ranks], dcfg, where, smi)
+    print(json.dumps({"data_parallel": rec}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device visible")
@@ -1534,8 +2003,7 @@ def main():
     from umr_tpu_torch.renderer import (SoftRenderer, apply_lighting,
                                         surface_normals)
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    no_tf32()
     dev = torch.device(DEVICE)
 
     phase("1. device")
@@ -2312,6 +2780,13 @@ def main():
     bwd_err = max(bwd_err, *(v["bwd"]["max_abs"] for v in var_slices))
     bwd_rel = max(bwd_rel, *(v["bwd"]["max_rel"] for v in var_slices))
 
+    phase("17. data parallelism: train_s2.run in a one-rank NCCL group "
+          "(parallel.launch); "
+          "one s2 step (batch 16) and one s1 step and template update "
+          "(batch 64) on two ranks sharing the card (gloo), against one "
+          "process")
+    dp_rec = data_parallel(smi, tcfg, tloader, seg, pvi, step_ms)
+
     record = {"kernels": [{
         "name": "raster_fwd", "route": "cuda", "source": KERNEL_SRC,
         "replaces": TPU_KERNEL, "launches": train_fwd,
@@ -2360,6 +2835,7 @@ def main():
         "s1_gan_bound_ms": s1_shapes["s1 gan"]["fwd_bound"][0],
         "step_slices": fwd_slices,
         "variants": variants_rec,
+        "data_parallel": dp_rec,
         "ptxas": {k: v for k, v in usage.items()
                   if k.startswith("raster_fwd")},
     }, {
@@ -2412,4 +2888,9 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--cards"]:
+        if not torch.cuda.is_available():
+            raise SystemExit("chip_smoke: no CUDA device visible")
+        multi_card(int(sys.argv[2]))
+    else:
+        main()

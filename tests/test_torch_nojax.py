@@ -1,17 +1,21 @@
 """The port (the inference slice, a training step of each stage and a
-flag variant's (--bf16 --nouse_texture), the stage handoff through files: avg_uv, test_kp, the synthetic category
-with its loader and curriculum tools, and the CUB data path: train_s1
-and test_iou --visualize from a --cub_dir with no loader passed, the
-native EDT, the JPEG reader's module) runs with jax, flax, optax, orbax,
-absl, imageio, cv2, PIL and the JAX package umr_tpu unavailable, and no
-file of it (nor chip_smoke.py) imports them: the machine with the card
-has none of them but umr_tpu, whose __init__ imports jax wherever jax is
-installed."""
+flag variant's (--bf16 --nouse_texture), the stage handoff through
+files: avg_uv, test_kp, the synthetic category with its loader and
+curriculum tools, and the CUB data path: train_s1 and test_iou
+--visualize from a --cub_dir with no loader passed, the native EDT, the
+JPEG reader's module; train_s1 from the --cub_dir on two ranks spawned
+by parallel.spawn, which report what they imported) runs with jax,
+flax, optax, orbax, absl, imageio, cv2, PIL and the JAX package umr_tpu
+unavailable, and no file of it (nor chip_smoke.py, nor the rank side
+it spawns, tests/torch_ranks.py) imports them: the machine with the
+card has none of them but umr_tpu, whose __init__ imports jax wherever
+jax is installed."""
 
 import os
 import re
 import subprocess
 import sys
+import tempfile
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -19,7 +23,7 @@ BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "absl", "imageio",
            "cv2", "PIL", "umr_tpu")
 
 SCRIPT = r"""
-import os, sys, tempfile
+import os, sys
 for m in %(blocked)r:
     sys.modules[m] = None
 import numpy as np
@@ -32,7 +36,7 @@ from umr_tpu_torch.experiments import demo, test_iou
 from umr_tpu_torch.mesh import build_template
 from umr_tpu_torch.models import MeshNet, init_weights
 
-tmp = tempfile.mkdtemp()
+tmp = sys.argv[1]
 t = build_template(2, 1, 2)
 m = init_weights(MeshNet(t, input_size=32, nz_feat=16, z_dim=8,
                          num_hypo_cams=2), torch.Generator().manual_seed(0))
@@ -137,6 +141,22 @@ cfg = train_s1.config(["--image_size", "32", "--batch_size", "2",
                       + cub_dirs)
 trainer = train_s1.run(cfg, device="cpu")
 assert trainer.state.step == 1
+# the same from the files on 2 ranks (parallel.spawn, gloo on the CPU): the
+# spawned ranks import nothing blocked either
+with open(os.path.join(tmp, "ranks_probe.py"), "w") as f:
+    f.write("import sys\n"
+            "def train(cfg):\n"
+            "    from umr_tpu_torch.experiments import train_s1\n"
+            "    trainer = train_s1.run(cfg, device='cpu')\n"
+            "    return trainer.state.step, sorted(\n"
+            "        k for k, v in sys.modules.items() if v is not None\n"
+            "        and k.split('.')[0] in %(blocked)r)\n")
+sys.path.insert(0, tmp)
+from ranks_probe import train as probe_train
+from umr_tpu_torch.parallel import spawn
+ranks = spawn(probe_train, 2, cfg.replace(name="cub_s1_2ranks"),
+              device="cpu")
+assert ranks == [(1, []), (1, [])], ranks
 cfg = Config(image_size=32, subdivide=2, tex_size=2, num_hypo_cams=2,
              nz_feat=16, z_dim=8, model_path=path, split="test",
              batch_size=2, cub_dir=cub_dirs[1], cub_cache_dir=cub_dirs[3],
@@ -156,10 +176,12 @@ def test_slice_runs_without_jax():
     env["PYTHONPATH"] = os.pathsep.join(
         [str(ROOT)] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
                        if p])
-    res = subprocess.run([sys.executable, "-c",
-                          SCRIPT % {"blocked": BLOCKED}],
-                         cwd=ROOT, env=env, capture_output=True, text=True,
-                         timeout=300)
+    # the runs' checkpoints take ~1 GB: removed whatever the outcome
+    with tempfile.TemporaryDirectory() as tmp:
+        res = subprocess.run([sys.executable, "-c",
+                              SCRIPT % {"blocked": BLOCKED}, tmp],
+                             cwd=ROOT, env=env, capture_output=True,
+                             text=True, timeout=300)
     assert res.returncode == 0, res.stderr[-4000:]
     assert "SLICE_OK" in res.stdout
 
@@ -169,9 +191,11 @@ def test_no_file_of_the_port_imports_jax():
         r"^\s*(?:import|from)\s+(?:" + "|".join(BLOCKED) + r")(?:\.|\s|$)",
         re.M)
     files = sorted((ROOT / "umr_tpu_torch").rglob("*.py"))
-    files.append(ROOT / "chip_smoke.py")
+    # chip_smoke.py and the rank side it spawns on the card
+    files += [ROOT / "chip_smoke.py", ROOT / "tests" / "torch_ranks.py"]
     assert len(files) > 10
     for f in ("experiments/train_s1.py", "training/steps.py",
+              "parallel/mesh.py", "parallel/__init__.py",
               "models/mesh_net.py", "ops/raster_kernel.py", "data/cub.py",
               "data/loader.py", "native.py", "jpeg.py",
               "training/visuals.py"):

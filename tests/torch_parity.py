@@ -10,14 +10,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from torch_ranks import grads_of, np_of  # noqa: F401 — np_of for the tests
+
 torch.set_num_threads(2)
-
-
-def np_of(x):
-    """jax or torch array -> numpy."""
-    if isinstance(x, torch.Tensor):
-        return x.detach().cpu().numpy()
-    return np.asarray(x)
 
 
 def t_of(x):
@@ -194,7 +189,8 @@ def _jax_grads_torch_layout(jgrads, names, stage, num_cams, n_up):
                                 to_flax=False) for k in names}
 
 
-def step_parity(stage, kw, jax_kw, lr, B=4, image_size=32, impl="auto"):
+def step_parity(stage, kw, jax_kw, lr, B=4, image_size=32, impl="auto",
+                mesh=None, on_inputs=None):
     """One training step of the port (stage 1 or 2, Config(**kw)) and of
     the JAX package's (Config(**kw, **jax_kw)) on the same weights (the
     port's seeded init carried to flax; the discriminator's flax init
@@ -203,7 +199,14 @@ def step_parity(stage, kw, jax_kw, lr, B=4, image_size=32, impl="auto"):
     learning rate lr on both sides. Stage 1 runs at epoch 0, from a
     template moved off its init. Returns dict(port_sc, port_grads,
     jax_sc, jax_grads) with the gradients as (p0 - p1) / lr under the
-    port's parameter names and layouts."""
+    port's parameter names and layouts.
+
+    mesh=n runs the JAX step as umr_tpu.parallel.data_parallel_step over
+    an n-device mesh (the batch sharded, the state replicated), and adds
+    the one-process port step's own gradients (port_grad: p.grad after
+    the step). on_inputs, given, is called before either step runs with
+    what a port step on ranks needs (rank_steps): init (the port's
+    weights), db (the prepared global batch) and draws (global, numpy)."""
     import os
 
     import jax
@@ -247,6 +250,9 @@ def step_parity(stage, kw, jax_kw, lr, B=4, image_size=32, impl="auto"):
                     "pixel_rows_per_block"]), tex_size=2)
         jmodel, jdisc, _, _, jstep = jsteps.build_s2_step(jcfg, jt, jpl, pvi)
         num_cams = cfg.num_hypo_cams
+        if mesh:
+            from umr_tpu.parallel import data_parallel_step, make_mesh
+            jstep = data_parallel_step(jstep, make_mesh(mesh))
     else:
         _, _, _, init_fn, step_fn, _, _ = tsteps.build_s1_step(
             cfg, template, "cpu", impl=impl)
@@ -270,14 +276,14 @@ def step_parity(stage, kw, jax_kw, lr, B=4, image_size=32, impl="auto"):
         opt_state=jsteps.make_optimizer(jcfg).init(params),
         lpips=load_lpips_params(os.path.join(WEIGHTS_DIR, "lpips_alex.npz")))
     key = jax.random.key(1)
-    args = (jnp.float32(0.0),) if stage == 1 else ()
-    jstate1, jsc = jstep(jstate, jbatch, key, *args)
 
-    # the JAX step's draws: its key split as loss_fn splits it
+    # the JAX step's draws: its key split as loss_fn splits it, the
+    # forward jitted as in the step (op by op it takes ~20 s here)
     k_sample, k_gan = jax.random.split(key)
-    out, _ = jmodel.apply(
+    out, _ = jax.jit(lambda v, x, k: jmodel.apply(
+        v, x, train=True, rngs={"sample": k}, mutable=["batch_stats"]))(
         {**variables, "params": params["model"]}, jbatch["input_img"],
-        train=True, rngs={"sample": k_sample}, mutable=["batch_stats"])
+        k_sample)
     mean, logvar = np.asarray(out["mean"]), np.asarray(out["logvar"])
     noise = np.asarray(out["noise" if stage == 2 else "feat"])
     draws = {"eps": torch.as_tensor(
@@ -288,6 +294,15 @@ def step_parity(stage, kw, jax_kw, lr, B=4, image_size=32, impl="auto"):
     if cfg.use_gan:
         draws["angles"] = torch.as_tensor(np.array(
             jax.random.randint(k_gan, (B,), 0, 180)))
+
+    init = {"model": {k: v.clone() for k, v in
+                      state.model.state_dict().items()},
+            "disc": {k: v.clone() for k, v in state.disc.state_dict().items()}}
+    if on_inputs is not None:
+        on_inputs(dict(init=init, db=db,
+                       draws={k: np_of(v) for k, v in draws.items()}))
+    args = (jnp.float32(0.0),) if stage == 1 else ()
+    jstate1, jsc = jstep(jstate, jbatch, key, *args)
 
     p0 = params_of(state)
     step_args = (0.0,) if stage == 1 else ()
@@ -300,11 +315,14 @@ def step_parity(stage, kw, jax_kw, lr, B=4, image_size=32, impl="auto"):
         for k, v in flat_tree(jstate.params[pre]).items():
             jgrads[f"{pre}/{k}"] = (np.asarray(v) - np.asarray(after[k])) / lr
     n_up = min(5, int(np.log2(template.uv_image_size()[0])))
-    return dict(port_sc={k: float(v) for k, v in sc.items()},
-                port_grads=port_grads,
-                jax_sc={k: float(v) for k, v in jsc.items()},
-                jax_grads=_jax_grads_torch_layout(
-                    jgrads, port_grads, stage, num_cams, n_up))
+    out = dict(port_sc={k: float(v) for k, v in sc.items()},
+               port_grads=port_grads,
+               jax_sc={k: float(v) for k, v in jsc.items()},
+               jax_grads=_jax_grads_torch_layout(
+                   jgrads, port_grads, stage, num_cams, n_up))
+    if mesh:
+        out["port_grad"] = grads_of(state)
+    return out
 
 
 def grads_close(g, jg, rel, cos):

@@ -77,6 +77,10 @@ Port module -> JAX counterpart (umr_tpu/...):
                              tools/synthetic_parity.py, extend_s2.py,
                              eval_kp_pairs.py (the synthetic curriculum)
   cli.py                     config.py::define_flags (argparse, same names)
+  parallel/mesh.py           parallel/mesh.py's data parallelism (make_mesh,
+                             shard_batch, replicate) over torch.distributed,
+                             with spawn and the entry points' launch; the
+                             global BatchNorm in models/net_blocks.py
 
 Parity traps the port reproduces:
   * heads.py: the 1x1 `enc_conv1` for inputs under 64 px; CHW flatten

@@ -21,6 +21,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from .parallel import world_size
+
 RESNET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
 RESNET_STD = np.array([0.229, 0.224, 0.225], np.float32)
 
@@ -132,7 +134,9 @@ class Config:
         """Reject non-default values of flags whose non-default behaviour
         is not implemented: reference code paths scoped out
         (NotImplementedError) and flags dead in the reference too
-        (ValueError). Returns self so it chains."""
+        (ValueError), and a batch_size (the global batch) that the ranks
+        of this process's group do not divide (ValueError). Returns self
+        so it chains."""
         ni = {"symmetric": True, "only_mean_sym": False,
               "symmetric_texture": True}
         for k, default in ni.items():
@@ -141,6 +145,11 @@ class Config:
                     f"--{k}={getattr(self, k)} is a reference code path this "
                     f"rebuild does not implement; only {k}={default} is "
                     "supported.")
+        size = world_size()
+        if self.batch_size % size:
+            raise ValueError(
+                f"--batch_size={self.batch_size} is the global batch: the "
+                f"{size} ranks of this run do not divide it")
         dead = {"detach_shape": True, "detach_cam": True, "workers": 16,
                 "num_kps": 15, "dataset": "cub"}
         for k, default in dead.items():
@@ -163,12 +172,15 @@ class Config:
 
 def resolve_device(device=None):
     """The entry points' device: the card unless the caller names another
-    (device="cpu" for the CPU). No quiet fallback: asking for the card
-    where none is visible raises."""
+    (device="cpu" for the CPU); in a group of ranks, the rank's card
+    (parallel/mesh.py::make_mesh sets it current). No quiet fallback:
+    asking for the card where none is visible raises."""
     device = torch.device(device if device is not None else "cuda")
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device is visible; pass device='cpu' "
                            "to run on the CPU")
+    if device.type == "cuda" and device.index is None and world_size() > 1:
+        device = torch.device("cuda", torch.cuda.current_device())
     return device
 
 

@@ -29,6 +29,7 @@ import numpy as np
 from .. import image as image_utils
 from ..native import edt_barrier
 from ..ops.quaternion import mirror_quat_np, quat_from_matrix_np
+from ..parallel import rank_and_size
 from ..png import read_image
 from .loader import DataLoader
 
@@ -262,28 +263,20 @@ class CUBTestPairDataset:
         return self.sdset[i1 if self.filter_key == 1 else i2]
 
 
-def process_rank():
-    """(index, count) of this process in torch.distributed's group, or
-    (0, 1) when it is not initialised."""
-    import torch.distributed as dist
-
-    if dist.is_available() and dist.is_initialized():
-        return dist.get_rank(), dist.get_world_size()
-    return 0, 1
-
-
 def data_loader(opts, shuffle=True, mirror=True, process_shard=None,
                 device=None):
     """The CUB loader of opts.split. process_shard (default: shuffle)
-    gives each process its interleaved slice of every epoch; evaluation
-    passes (shuffle=False) cover the whole split in every process. JPEG
-    images decode on `device` (the card unless named)."""
+    gives each rank of the group (parallel/mesh.py) its interleaved slice
+    of every epoch, in batches of batch_size / ranks (opts.batch_size is
+    the global batch); evaluation passes (shuffle=False) cover the whole
+    split in every process. JPEG images decode on `device` (the card
+    unless named)."""
     dset = CUBDataset(opts, mirror=mirror, device=device)
     if process_shard is None:
         process_shard = shuffle
-    pi, pc = process_rank() if process_shard else (0, 1)
+    pi, pc = rank_and_size() if process_shard else (0, 1)
     return DataLoader(
-        dset, opts.batch_size, shuffle=shuffle,
+        dset, opts.batch_size // pc, shuffle=shuffle,
         num_workers=opts.n_data_workers, drop_last=True, seed=opts.seed,
         process_index=pi, process_count=pc)
 

@@ -31,6 +31,7 @@ from ..config import resolve_device
 from ..image import prob2center, sample_prob
 from ..native import edt_barrier
 from ..ops.grid_sample import grid_sample
+from ..parallel import shard_batch
 from ..renderer import SoftRenderer
 
 # part channels follow the SCOPS convention: 0 background, 1 head, 2 neck,
@@ -294,7 +295,13 @@ class CategoryLoader:
     and its small host arrays (kp, the part points) to the device. At
     n=384 and 256^2 the staged set is ~1.0 GB. `staged`, stage(data)'s
     arrays, makes a device_data loader index that copy instead of staging
-    its own. Every __iter__ advances the epoch that seeds the shuffle."""
+    its own. Every __iter__ advances the epoch that seeds the shuffle.
+
+    batch_size is the global batch: in a group of ranks (parallel/
+    mesh.py) rank r gets block r of each global batch, the part points
+    drawn for the whole batch (one process's draws), and device_data
+    stages on the rank's own card. PairLoader, which feeds evaluation,
+    gives every process the whole order."""
 
     def __init__(self, data, batch_size, shuffle=True, seed=0,
                  use_scops=True, drop_last=True, device_data=False,
@@ -341,7 +348,8 @@ class CategoryLoader:
         self._epoch += 1
         dev = self._device_arrays() if self.device_data else None
         for bi in range(len(self)):
-            idx = order[bi * self.batch_size:(bi + 1) * self.batch_size]
+            batch_idx = order[bi * self.batch_size:(bi + 1) * self.batch_size]
+            idx = shard_batch({"idx": batch_idx})["idx"]
             if dev is not None:
                 idxd = torch.as_tensor(idx, device=self.device)
                 batch = {k: v.index_select(0, idxd) for k, v in dev.items()}
@@ -357,10 +365,11 @@ class CategoryLoader:
                     batch["part_prob"] = self.data["part_prob"][idx]
             if self.use_scops:
                 pts = [self._points(self.data["part_prob"][i],
-                                    self.data["mask"][i], rng) for i in idx]
-                for k in pts[0]:
-                    batch[k] = np.stack([p[k] for p in pts]).astype(
-                        np.float32)
+                                    self.data["mask"][i], rng)
+                       for i in batch_idx]
+                batch.update(shard_batch({
+                    k: np.stack([p[k] for p in pts]).astype(np.float32)
+                    for k in pts[0]}))
             yield batch
 
 

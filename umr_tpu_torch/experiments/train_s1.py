@@ -10,6 +10,12 @@ the visuals into {vis_dir}/{name}/ every display_freq steps.
 
   python -m umr_tpu_torch.experiments.train_s1 --name cub_s1 \\
       --cub_dir CUB_200_2011/ --cub_cache_dir <cache> --batch_size 64
+
+With --data_parallel (the default) and N > 1 visible cards main() trains
+on all of them, one rank per card (parallel/mesh.py::launch; torchrun
+--nproc_per_node=N -m ... joins torchrun's group instead); --batch_size
+is the global batch, each rank loading batch_size / N. The template
+update averages the VAE samples of every rank.
 """
 
 from __future__ import annotations
@@ -20,6 +26,7 @@ from ..cli import S1_DEFAULTS, parse_config
 from ..config import Config, resolve_device
 from ..data.cub import data_loader
 from ..mesh import build_template
+from ..parallel import all_reduce_, is_writer, launch
 from ..renderer import SoftRenderer
 from ..training.steps import build_s1_step
 from ..training.trainer import Trainer, prepare_batch
@@ -41,6 +48,25 @@ def vis_renderer(cfg: Config):
         anti_aliasing=cfg.anti_aliasing, ambient_intensity=0.8,
         directional_intensity=0.4, light_direction=(0.0, 1.0, -1.0),
         background_color=(1.0, 1.0, 1.0))
+
+
+def update_template(cfg, state, dataloader, encode_feat_fn,
+                    template_update_fn, generator):
+    """The online template update: mean_v += shape_predictor(the mean VAE
+    sample over the loader's images), the sample's noise drawn from
+    `generator`. In a group of ranks the sums and counts are all-reduced
+    first, so the mean is over every rank's images. Returns (state, the
+    number of images averaged)."""
+    total, count = None, 0
+    for batch in dataloader:
+        db = prepare_batch(batch, cfg.use_scops, cfg.use_texture)
+        f = encode_feat_fn(state, db, generator=generator)
+        total = f.sum(0) if total is None else total + f.sum(0)
+        count += f.shape[0]
+    sums = torch.cat([total, total.new_full((1,), count)])
+    all_reduce_([sums], mean=False)
+    count = int(sums[-1])
+    return template_update_fn(state, sums[:-1] / count), count
 
 
 def run(cfg: Config, dataloader=None, device=None):
@@ -66,16 +92,13 @@ def run(cfg: Config, dataloader=None, device=None):
         if (epoch + 1) % cfg.update_template_freq:
             return state
         gen = torch.Generator(device).manual_seed(cfg.seed + 1234 + epoch)
-        total, count = None, 0
-        for batch in dataloader:
-            db = prepare_batch(batch, cfg.use_scops, cfg.use_texture)
-            f = encode_feat_fn(state, db, generator=gen)
-            total = f.sum(0) if total is None else total + f.sum(0)
-            count += f.shape[0]
-        state = template_update_fn(state, total / count)
+        state, count = update_template(cfg, state, dataloader,
+                                       encode_feat_fn, template_update_fn,
+                                       gen)
         updates.append((epoch, count))
-        print(green(f"epoch {epoch}: template updated from {count} "
-                    "images"), flush=True)
+        if is_writer():
+            print(green(f"epoch {epoch}: template updated from {count} "
+                        "images"), flush=True)
         return state
 
     visuals_fn = (make_visuals_fn(cfg, template, vis_renderer(cfg))
@@ -89,7 +112,8 @@ def run(cfg: Config, dataloader=None, device=None):
 
 
 def main(argv=None):
-    run(config(argv))
+    cfg = config(argv)
+    launch(run, cfg, data_parallel=cfg.data_parallel)
 
 
 if __name__ == "__main__":

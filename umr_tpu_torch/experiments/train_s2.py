@@ -11,6 +11,12 @@ dataloader. The semantic template comes from avg_uv's files in
 _vertices.npy, in vertices_idx/ or beside the PNG), or as arrays. With
 --display_visuals the visuals go into {vis_dir}/{name}/ every
 display_freq steps.
+
+With --data_parallel (the default) and N > 1 visible cards main() trains
+on all of them, one rank per card (parallel/mesh.py::launch; torchrun
+--nproc_per_node=N -m ... joins torchrun's group instead); --batch_size
+is the global batch, each rank loading batch_size / N, and each step is
+the one-process step at the global batch.
 """
 
 from __future__ import annotations
@@ -28,6 +34,7 @@ from ..data.cub import data_loader
 from ..losses.composite import PartMatchingLoss
 from ..mesh import build_template
 from ..models.weights import load_checkpoint
+from ..parallel import launch
 from ..png import read_png
 from ..renderer import SoftRenderer
 from ..training.steps import build_s2_step
@@ -136,7 +143,8 @@ def run(cfg: Config, dataloader=None, device=None, semantic=None):
 
 
 def main(argv=None):
-    run(parse_config(argv))
+    cfg = parse_config(argv)
+    launch(run, cfg, data_parallel=cfg.data_parallel)
 
 
 if __name__ == "__main__":

@@ -17,7 +17,10 @@ compute_dtype (bf16 mixed precision) reaches the convs of the encoder's
 trunk, its enc_conv1 and the texture decoder (net_blocks.py); the linear
 layers and every head stay float32, as in the JAX package.
 Random draws take an explicit torch.Generator, or are injected (`eps`,
-`sample_inds`) so tests can feed the JAX package's draws.
+`sample_inds`) so tests can feed the JAX package's draws. Under data
+parallelism the VAE noise is drawn at the global batch's shape, each
+rank taking its block, and the camera hypothesis from a stream of the
+rank's own (parallel/mesh.py::rank_block, rank_generator).
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ import torch.nn.functional as F
 
 from ..ops.grid_sample import grid_sample
 from ..ops.quaternion import ang2quat, hamilton_product
+from ..parallel import rank_block, rank_generator
 from .net_blocks import conv2d, decoder2d, fc_stack
 from .resnet import ResNetConv
 
@@ -64,8 +68,9 @@ class Encoder(nn.Module):
         mean = self.mean_fc(feat)
         logvar = self.logvar_fc(feat)
         if eps is None:
-            eps = torch.randn(mean.shape, generator=generator,
-                              device=mean.device, dtype=mean.dtype)
+            eps = rank_block(lambda n: torch.randn(
+                (n,) + mean.shape[1:], generator=generator,
+                device=mean.device, dtype=mean.dtype), mean.shape[0])
         noise = eps * torch.exp(0.5 * logvar) + mean
         return feat, noise, mean, logvar
 
@@ -238,8 +243,8 @@ class MultiCamPredictor(nn.Module):
         all_cams = torch.cat([cams[:, :, 5:6], cams[:, :, 6:8], quats], dim=2)
         if sample_inds is None:
             # categorical over log(p + 1e-9) == multinomial over p + 1e-9
-            sample_inds = torch.multinomial(cam_probs + 1e-9, 1,
-                                            generator=generator)
+            sample_inds = torch.multinomial(
+                cam_probs + 1e-9, 1, generator=rank_generator(generator))
         sample_inds = sample_inds.reshape(-1, 1).to(all_cams.device).long()
         cam = torch.gather(all_cams, 1,
                            sample_inds[:, :, None].expand(-1, 1, 7))[:, 0]

@@ -11,11 +11,22 @@ convs: a conv given compute_dtype casts its input, weight and bias to it
 and returns that dtype; every BatchNorm normalises a float32 copy of its
 input and returns float32 (flax's BatchNorm(dtype=float32)); linear
 layers stay float32. Parameters are float32 throughout.
+
+Under data parallelism (parallel/mesh.py) every BatchNorm in train mode
+normalises over the global batch, as flax's BatchNorm does under the JAX
+package's sharded step: global_batch_norm, over all_reduce only (gloo
+has no all_gather on CUDA tensors, which torch.nn.SyncBatchNorm needs).
+The running statistics take the global mean and the unbiased global
+variance (torch's convention; flax's is biased). With no group, or in
+eval mode, each is torch's module, bit for bit.
 """
 
 from __future__ import annotations
 
+import torch
 import torch.nn as nn
+
+from ..parallel import all_reduce_, world_size
 
 
 class Conv2d(nn.Conv2d):
@@ -35,20 +46,82 @@ class Conv2d(nn.Conv2d):
             None if self.bias is None else self.bias.to(dt))
 
 
-class BatchNorm2d(nn.BatchNorm2d):
-    """nn.BatchNorm2d on a float32 copy of its input (a float32 input is
-    taken as is): after a bfloat16 conv it computes and returns float32."""
+class _GlobalBatchNorm(torch.autograd.Function):
+    """Train-mode batch norm over the global batch of all ranks: x [N, C,
+    ...] float32, this rank's block. The forward sums, over the ranks,
+    the values with their count, then the squares centred on the global
+    mean (two passes: sums of x and x^2 cancel in float32); the backward
+    sums dy and dy * x_hat. The weight and bias gradients are this rank's
+    own sums, which the step averages over the ranks with every other
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, bn):
+        C = x.shape[1]
+        dims = [0] + list(range(2, x.ndim))
+        shape = [1, C] + [1] * (x.ndim - 2)
+        sums = torch.cat([x.sum(dims), x.new_full((1,), x.numel() // C)])
+        all_reduce_([sums], mean=False)
+        count = sums[C]
+        mean = sums[:C] / count
+        xc = x - mean.view(shape)
+        var = (xc * xc).sum(dims)
+        all_reduce_([var], mean=False)
+        var = var / count
+        invstd = torch.rsqrt(var + bn.eps)
+        x_hat = xc * invstd.view(shape)
+        with torch.no_grad():
+            bn.num_batches_tracked.add_(1)
+            m = (bn.momentum if bn.momentum is not None
+                 else 1.0 / float(bn.num_batches_tracked))
+            bn.running_mean.mul_(1 - m).add_(mean, alpha=m)
+            bn.running_var.mul_(1 - m).add_(var * count / (count - 1),
+                                            alpha=m)
+        ctx.save_for_backward(x_hat, invstd, weight, count)
+        return x_hat * weight.view(shape) + bias.view(shape)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x_hat, invstd, weight, count = ctx.saved_tensors
+        C = dy.shape[1]
+        dims = [0] + list(range(2, dy.ndim))
+        shape = [1, C] + [1] * (dy.ndim - 2)
+        local = torch.cat([dy.sum(dims), (dy * x_hat).sum(dims)])
+        sums = local.clone()
+        all_reduce_([sums], mean=False)
+        dx = (dy - (sums[:C] / count).view(shape)
+              - x_hat * (sums[C:] / count).view(shape)) * (
+            invstd * weight).view(shape)
+        return dx, local[C:], local[:C], None
+
+
+class _FloatBatchNorm:
+    """A BatchNorm on a float32 copy of its input (a float32 input is
+    taken as is): after a bfloat16 conv it computes and returns float32.
+    In train mode under a group of more than one rank it normalises over
+    the global batch (_GlobalBatchNorm)."""
 
     def forward(self, x):
-        return super().forward(x.float())
+        x = x.float()
+        if self.training and world_size() > 1:
+            return _GlobalBatchNorm.apply(x, self.weight, self.bias, self)
+        return super().forward(x)
+
+
+class BatchNorm2d(_FloatBatchNorm, nn.BatchNorm2d):
+    pass
+
+
+class BatchNorm1d(_FloatBatchNorm, nn.BatchNorm1d):
+    pass
 
 
 def fc(in_features, out_features, use_bn=True):
     """Linear [+ BatchNorm1d] + LeakyReLU."""
     if use_bn:
         return nn.Sequential(nn.Linear(in_features, out_features),
-                             nn.BatchNorm1d(out_features, eps=1e-5,
-                                            momentum=0.1),
+                             BatchNorm1d(out_features, eps=1e-5,
+                                         momentum=0.1),
                              nn.LeakyReLU(0.2))
     return nn.Sequential(nn.Linear(in_features, out_features),
                          nn.LeakyReLU(0.1))

@@ -12,6 +12,10 @@ the model's, the discriminator's and the optimizer's state_dicts, the
 step and update counts and the step generator's state, so that a resumed
 run continues where the saved one stopped (the learning rate follows
 the update count; stage 1's template lives in the model's mean_v).
+
+In a group of ranks (parallel/mesh.py) rank 0 writes and every rank
+waits for the file at a barrier; every rank restores the same file onto
+its own device.
 """
 
 from __future__ import annotations
@@ -20,21 +24,26 @@ import os
 
 import torch
 
+from ..parallel import barrier, is_writer
 
-def _atomic_save(obj, path):
-    """torch.save to a temporary name, then os.replace: a killed save
-    leaves the previous file whole."""
-    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-    tmp = f"{path}.tmp{os.getpid()}"
-    torch.save(obj, tmp)
-    os.replace(tmp, path)
+
+def _atomic_save(make_obj, path):
+    """torch.save(make_obj()) to a temporary name, then os.replace: a
+    killed save leaves the previous file whole. Rank 0 writes; every rank
+    returns once the file is in place."""
+    if is_writer():
+        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+        tmp = f"{path}.tmp{os.getpid()}"
+        torch.save(make_obj(), tmp)
+        os.replace(tmp, path)
+    barrier()
 
 
 def save_pth(path, model):
     """The model's state_dict (parameters, BatchNorm statistics, mean_v),
     on the CPU."""
-    _atomic_save({k: v.detach().cpu() for k, v in model.state_dict().items()},
-                 path)
+    _atomic_save(lambda: {k: v.detach().cpu()
+                          for k, v in model.state_dict().items()}, path)
 
 
 def state_path(save_dir, label="pred"):
@@ -45,7 +54,7 @@ def save_state(save_dir, state, label="pred"):
     """The training state (training/steps.py::TrainState) -> the resume
     file; returns its path."""
     path = state_path(save_dir, label)
-    _atomic_save({
+    _atomic_save(lambda: {
         "model": state.model.state_dict(),
         "disc": state.disc.state_dict(),
         "optimizer": state.optimizer.state_dict(),

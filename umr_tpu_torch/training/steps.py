@@ -60,6 +60,23 @@ without texture.
 Random draws (the VAE noise, the camera hypothesis, the GAN view angles)
 come from the state's torch.Generator unless injected (`draws`).
 
+Data parallelism (parallel/mesh.py): in a group of N > 1 ranks each rank
+steps on its block of the global batch, and the step is the one-process
+step at the global batch. The BatchNorms normalise over the global batch
+(models/net_blocks.py); the gradients are averaged over the ranks by one
+all_reduce before the update (with optim_bs > 1, once per update, over
+the accumulated sums); the returned scalars are their means over the
+ranks. Every batch reduction of both objectives is a mean over samples
+of equal weight (neg_iou, laplacian, flatten, deform, sym_reg, the
+cam_probs-weighted mask, LPIPS and corr sums then .mean(), texture_dt,
+tex_cycle, the part matching, the GAN's BCE and accuracy over real and
+fake, uv_flow_area), and normalize_part_segs is per sample, so with
+equal shards the mean over the ranks is the global batch's value. The
+VAE noise and the GAN angles are drawn at the global shape (each rank
+its block: one process's draws), the camera hypothesis from the rank's
+own stream; injected draws are global and each rank takes its block. No
+group: none of this runs.
+
 The step's layers are torch.profiler ranges ("s2.forward" around the
 loss, inside it "s2.model", "s2.pass1_fold", "s2.lpips", "s2.pass2_hard"
 and "s2.pass3_merged"; then "s2.backward" and "s2.optimizer"; stage 1's
@@ -92,6 +109,7 @@ from ..models import (Discriminator, LPIPSAlex, MeshNet, MeshNetS1,
 from ..models.weights import WEIGHTS_DIR, load_lpips_npz, load_resnet18_npz
 from ..ops.grid_sample import sample_textures
 from ..ops.quaternion import rotate_cam
+from ..parallel import all_reduce_, rank_block, shard_batch, world_size
 from ..renderer import SoftRenderer
 
 # settings that decide a render's bins: renders that agree on them can
@@ -212,12 +230,21 @@ def _make_init_fn(cfg: Config, model, disc, lpips, device):
     return init_fn
 
 
+def _draws_on(draws, device):
+    """Injected draws (of the global batch: this rank's block) as tensors
+    on `device`."""
+    return {k: torch.as_tensor(v, device=device)
+            for k, v in shard_batch(draws or {}).items()}
+
+
 def _train_step(cfg: Config, state: TrainState, batch, device, prefix,
                 loss_fn):
     """One training step: the batch to `device`, train mode, loss_fn(batch)
     -> (total, scalars) in the range f"{prefix}.forward", its backward
     and, every optim_bs batches, the update with the mean of their
-    gradients at the step's learning rate. Returns (state, scalars)."""
+    gradients at the step's learning rate. In a group of ranks the
+    gradients are averaged over the ranks before the update and the
+    scalars are their means over the ranks. Returns (state, scalars)."""
     batch = {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
     state.model.train()
     state.disc.train()
@@ -230,8 +257,15 @@ def _train_step(cfg: Config, state: TrainState, batch, device, prefix,
     with record_function(f"{prefix}.backward"):
         total.backward()
     state.step += 1
+    sc = {name: v.detach() for name, v in sc.items()}
+    if world_size() > 1:
+        values = torch.stack([v.float().reshape(()) for v in sc.values()])
+        all_reduce_([values])
+        sc = dict(zip(sc, values.unbind()))
     if state.step % k == 0:
         with record_function(f"{prefix}.optimizer"):
+            all_reduce_([p.grad for group in opt.param_groups
+                         for p in group["params"] if p.grad is not None])
             if k > 1:
                 for group in opt.param_groups:
                     for p in group["params"]:
@@ -241,7 +275,7 @@ def _train_step(cfg: Config, state: TrainState, batch, device, prefix,
                 group["lr"] = learning_rate(cfg, state.updates)
             opt.step()
         state.updates += 1
-    return state, {name: v.detach() for name, v in sc.items()}
+    return state, sc
 
 
 def build_s2_step(cfg: Config, template, part_loss: PartMatchingLoss,
@@ -256,8 +290,9 @@ def build_s2_step(cfg: Config, template, part_loss: PartMatchingLoss,
     init_fn(seed=cfg.seed, weights_dir) -> TrainState: seeded weights,
     the ResNet-18 trunk and LPIPS from weights_dir where present.
     step_fn(state, batch, draws=None) -> (state, scalars): batch is the
-    trainer's prepare_batch dict (numpy or tensors); draws optionally
-    injects 'eps' [B,z_dim], 'sample_inds' [B,1] and 'angles' [B]."""
+    trainer's prepare_batch dict (numpy or tensors; in a group of ranks
+    this rank's block); draws optionally injects 'eps' [B,z_dim],
+    'sample_inds' [B,1] and 'angles' [B] of the global batch."""
     check_supported(cfg)
     device = resolve_device(device)
     model = MeshNet(template, input_size=cfg.image_size, nz_feat=cfg.nz_feat,
@@ -382,9 +417,9 @@ def build_s2_step(cfg: Config, template, part_loss: PartMatchingLoss,
         if cfg.use_gan:
             angles = draws.get("angles")
             if angles is None:
-                angles = torch.randint(0, 180, (B,),
-                                       generator=state.generator,
-                                       device=device)
+                angles = rank_block(lambda n: torch.randint(
+                    0, 180, (n,), generator=state.generator,
+                    device=device), B)
             random_cams = rotate_cam(proj_cam, angles)
         # pass 3: the part groups and the GAN's unseen view in one render
         if default and main_bins is not None and part_render_eq:
@@ -440,8 +475,9 @@ def build_s2_step(cfg: Config, template, part_loss: PartMatchingLoss,
         return total, sc
 
     def step_fn(state: TrainState, batch, draws: Optional[dict] = None):
+        draws = _draws_on(draws, device)
         return _train_step(cfg, state, batch, device, "s2",
-                           lambda b: loss_fn(state, b, draws or {}))
+                           lambda b: loss_fn(state, b, draws))
 
     return model, disc, lpips, init_fn, step_fn
 
@@ -457,9 +493,11 @@ def build_s1_step(cfg: Config, template, device=None, impl="auto"):
     deform reg (epoch > update_template_freq), as the reference does;
     draws optionally injects 'eps' [B,z_dim] and 'angles' [B].
     encode_feat_fn(state, batch, eps=None, generator=None) -> the VAE
-    sample [B,z_dim] of the eval-mode model, no gradients.
+    sample [B,z_dim] of the eval-mode model, no gradients (in a group,
+    the noise is this rank's block of the global batch's draw).
     template_update_fn(state, feat_mean [z_dim]) -> state with
-    mean_v += shape_predictor(feat_mean), in place."""
+    mean_v += shape_predictor(feat_mean), in place; feat_mean is the
+    mean over every rank's samples (experiments/train_s1.py)."""
     check_supported(cfg, stage=1)
     device = resolve_device(device)
     model = MeshNetS1(template, input_size=cfg.image_size,
@@ -553,9 +591,9 @@ def build_s1_step(cfg: Config, template, device=None, impl="auto"):
         if cfg.use_gan:
             angles = draws.get("angles")
             if angles is None:
-                angles = torch.randint(0, 180, (B,),
-                                       generator=state.generator,
-                                       device=device)
+                angles = rank_block(lambda n: torch.randint(
+                    0, 180, (n,), generator=state.generator,
+                    device=device), B)
             random_cams = rotate_cam(proj_cam.detach(), angles)
             with record_function("s1.pass3_gan"):
                 mask_unseen = renderer.render(pred_vs, faces, random_cams,
@@ -569,9 +607,10 @@ def build_s1_step(cfg: Config, template, device=None, impl="auto"):
 
     def step_fn(state: TrainState, batch, epoch=0.0,
                 draws: Optional[dict] = None):
+        draws = _draws_on(draws, device)
         return _train_step(
             cfg, state, batch, device, "s1",
-            lambda b: loss_fn(state, b, draws or {}, float(epoch)))
+            lambda b: loss_fn(state, b, draws, float(epoch)))
 
     @torch.no_grad()
     def encode_feat_fn(state: TrainState, batch, eps=None, generator=None):

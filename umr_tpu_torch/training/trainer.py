@@ -8,6 +8,13 @@ Files in {checkpoint_dir}/{name}/: opts.log (the Config), loss_log.txt
 (checkpoints.py), stage_budget.json. With a visuals_fn
 (training/visuals.py) and cfg.display_visuals, every display_freq steps
 the visuals go to {vis_dir}/{name}/, timed under the budget's "vis".
+
+In a group of ranks (parallel/mesh.py; --data_parallel through the entry
+points' launcher) every rank runs this loop on its own loader's batches
+(its block of each global batch) on its own device: every rank resumes
+from the same files, then takes rank 0's state (replicate), and reads
+the step's scalars as their means over the ranks. Rank 0 alone writes
+the files above and prints; the checkpoints wait for its write.
 """
 
 from __future__ import annotations
@@ -20,6 +27,7 @@ import numpy as np
 import torch
 
 from ..config import Config, normalize_images
+from ..parallel import is_writer, replicate
 from ..visualizer import Visualizer, green
 from . import checkpoints
 from .visuals import save_visuals
@@ -110,10 +118,13 @@ class Trainer:
         self.vis_out = os.path.join(cfg.vis_dir, cfg.name)
         self.device = next(state.model.parameters()).device
         self.history = []
+        self.writer = is_writer()
         self.save_dir = os.path.join(cfg.checkpoint_dir, cfg.name)
         os.makedirs(self.save_dir, exist_ok=True)
-        self._dump_opts()
+        if self.writer:
+            self._dump_opts()
         self._maybe_auto_resume()
+        self.state = replicate(self.state)
         # the GAN's "real" images lag one batch behind, as the reference's
         # random_imgs buffer (filled from the first batch, refreshed after
         # each step; ref train_s2.py:183-184, 270)
@@ -136,11 +147,16 @@ class Trainer:
             return
         try:
             checkpoints.restore_state(self.save_dir, self.state)
-            print(green(f"Auto-resumed from {path} at step "
-                        f"{self.state.step}."))
+            self._print(green(f"Auto-resumed from {path} at step "
+                              f"{self.state.step}."))
         except (ValueError, KeyError, RuntimeError) as e:
             # a state of another model, or a damaged file: start fresh
-            print(f"Auto-resume from {path} failed ({e}); starting fresh.")
+            self._print(f"Auto-resume from {path} failed ({e}); starting "
+                        "fresh.")
+
+    def _print(self, msg):
+        if self.writer:
+            print(msg)
 
     def _dump_opts(self):
         with open(os.path.join(self.save_dir, "opts.log"), "w") as f:
@@ -160,7 +176,7 @@ class Trainer:
         self._dump_budget()
 
     def _dump_budget(self):
-        if not self._budget_n:
+        if not self._budget_n or not self.writer:
             return
         n = self._budget_n
         out = {f"{k}_s_per_step": round(v / n, 4)
@@ -188,7 +204,7 @@ class Trainer:
 
     def train(self):
         cfg = self.cfg
-        visualizer = Visualizer(cfg)
+        visualizer = Visualizer(cfg) if self.writer else None
         total_steps = int(self.state.step)       # 0 or resumed
         dispatched = total_steps
         smoothed = 0.0
@@ -196,8 +212,8 @@ class Trainer:
         if cfg.num_iter and total_steps >= cfg.num_iter:
             # resumed at or past the target: the run is done; do not train
             # on through num_epochs over the finished checkpoint
-            print(green(f"Run already complete at step {total_steps} "
-                        f"(num_iter={cfg.num_iter}); nothing to do."))
+            self._print(green(f"Run already complete at step {total_steps} "
+                              f"(num_iter={cfg.num_iter}); nothing to do."))
             return self.state
 
         # resume into the right epoch: skip the epochs the restored step
@@ -298,21 +314,23 @@ class Trainer:
         smoothed = smoothed * 0.99 + 0.01 * sc["total_loss"]
         total_steps += 1
 
-        if cfg.print_scalars and total_steps % cfg.print_freq == 0:
+        if (self.writer and cfg.print_scalars
+                and total_steps % cfg.print_freq == 0):
             visualizer.print_current_scalars(
                 epoch, epoch_iter + 1,
                 {"smoothed_total_loss": smoothed, **sc})
 
-        if (cfg.display_visuals and self.visuals_fn is not None
+        if (self.writer and cfg.display_visuals
+                and self.visuals_fn is not None
                 and cfg.display_freq > 0      # <= 0: never
                 and total_steps % cfg.display_freq == 0):
             t0 = time.perf_counter()
             save_visuals(self.visuals_fn(self.state, db), self.vis_out)
             self._budget["vis"] += time.perf_counter() - t0
-            print(green(f"Visualization saved at {self.vis_out}."))
+            self._print(green(f"Visualization saved at {self.vis_out}."))
 
         if total_steps % cfg.save_latest_freq == 0:
-            print(green(f"saving the model at epoch {epoch}, "
-                        f"iters {total_steps}"))
+            self._print(green(f"saving the model at epoch {epoch}, "
+                              f"iters {total_steps}"))
             self.save("latest", export_pth=False)
         return total_steps, smoothed
