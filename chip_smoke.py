@@ -24,13 +24,17 @@ test_iou on a one-camera, untextured model; the kernels at the
 variants' new shapes against the plain versions) and data parallelism
 (train_s2.run in a one-rank NCCL group through parallel.launch; one s2
 and one s1 step with the template update on two ranks sharing the card
-over gloo, held against one process at the global batch), checks that
-each path went through the kernels, and times kernels,
+over gloo, held against one process at the global batch) and tensor
+parallelism with the checking tools (one s2 Adam step on two ranks as a
+(1, 2) mesh against one process; dryrun_multichip 4 on the card;
+check_fused_grads through the kernels; soak_train of both stages at full
+width), checks that each path went through the kernels, and times kernels,
 plain versions, the training steps and the handoff's entry points. Every
 run writes into a fresh temporary directory.
 
   python3 chip_smoke.py
-  python3 chip_smoke.py --cards N    # phase 17's steps on N cards (NCCL)
+  python3 chip_smoke.py --cards N    # phases 17 and 18 on N cards (NCCL)
+  python3 chip_smoke.py --cards N --phase 18    # phase 18's alone
 
 Exits non-zero on any failure, and when no GPU is visible. The line
 before the last is the kernel record (JSON); the last line is
@@ -1916,19 +1920,305 @@ def data_parallel(smi, tcfg, tloader, seg, pvi, phase7_ms):
     return rec
 
 
-def multi_card(n):
-    """python3 chip_smoke.py --cards N, on a machine with N cards: phase
-    17's steps on N ranks, one per card, that parallel.launch spawns as
-    the training entry points do (NCCL), against one process at the
-    global batch (hold_ranks), then the s2 step at N x TRAIN_BATCH (each
-    rank TRAIN_BATCH images) timed against one process at TRAIN_BATCH:
-    the images a second of N cards beside one card's; then 17d's
-    training run on the N ranks (hold_train)."""
+# phase 18, tensor parallelism and the checking tools. 18a: one s2 Adam
+# step (phase 7's configuration, batch 16) through
+# parallel.tensor_parallel_step on two ranks sharing the card (gloo) as
+# a (1, 2) mesh at the default min_size, against one process on the same
+# inputs: gradients at phase 17's bounds (the step's chaos, above), the
+# moments' shards against the one-process moments' slices at the same
+# bounds (exp_avg_sq, (1 - beta2) g^2, at twice the per-tensor bound),
+# each rank's parameters Adam's first step on its own gradient within
+# TP_ADAM_ERR of lr beyond two float32 roundings (reading 6.0e-4 lr before
+# those were allowed for: the rounding of a parameter near 1 at lr 1e-4),
+# the parameters after the step apart from one
+# process's by more than 0.1 lr only where the two gradients' signs
+# differ (Adam's first step is about lr sign(g); their share is printed:
+# 0.0155% on the (1, 2) mesh, whose ranks compute the one-process batch,
+# 1.67% on a 2 x 2 NCCL mesh, whose global BatchNorm sums in another
+# order at gradient cosine 0.99899); the leaves JAX's rule shards at this
+# configuration (tests/test_torch_tensor_parallel.py pins them to JAX's
+# param_partition_specs at Config()'s widths): the texture head's fc and
+# its two moments. 18b: dryrun_multichip 4 on the one card (gloo, 2 x 2).
+# 18c: check_fused_grads through the kernels. 18d: soak_train at full
+# width, each stage over a few rotating batches (SOAK_S2's and SOAK_S1's
+# --n_batches: a fresh batch per step costs the host 0.5 s (s2) and 2.4 s
+# (s1) to make, more than the step).
+TP_LEAVES = ["model.texture_predictor.enc.1.0.weight",
+             "model.texture_predictor.enc.1.0.weight:exp_avg",
+             "model.texture_predictor.enc.1.0.weight:exp_avg_sq"]
+TP_ADAM_ERR = 1e-3
+SOAK_S2 = ["--stage", "s2", "--steps", "100", "--batch", "16",
+           "--n_batches", "4"]
+SOAK_S1 = ["--stage", "s1", "--steps", "150", "--batch", "64",
+           "--template_update_every", "50", "--n_batches", "2"]
+# Stage 1's soak under the tool's Config() on the synthetic ellipse
+# batches: the total loss falls from ~18 to ~7.4 in every run, but the
+# mask IoU, head (steps 0-20) to tail, rose in 7 and fell in 3 of 10 runs
+# of 150-300 steps (e.g. 0.319 -> 0.349, 0.308 -> 0.282, 0.311 -> 0.330,
+# 0.310 -> 0.258; NVIDIA H100 80GB HBM3, 700.00 W): the mask term barely
+# moves while the flatten and Laplacian terms settle, and the kernels'
+# atomics give each run its own path. So 18d prints s1's IoU trend and
+# holds its loss and template; s2's trends are all held.
+
+
+def tp_rank(mesh_shape, specs):
+    """tests/torch_ranks.py::rank_tp with TF32 off, in a spawned rank as
+    in this process."""
+    from torch_ranks import rank_tp
+
+    no_tf32()
+    return rank_tp(mesh_shape, specs)
+
+
+def tp_spec(seg, pvi, batch, seed):
+    """One s2 Adam step at a global batch of `batch` (dp_s2_spec) through
+    shard_state at the default min_size, returning the gathered
+    gradients and parameters and each rank's moment shards."""
+    return dict(dp_s2_spec(seg, pvi, batch, seed), min_size=1 << 22,
+                full=("grad", "param"), shard_moments=True)
+
+
+def _grads_held(got, ref, rel):
+    """(worst per-tensor ||got - ref|| / (||ref|| + 1e-6 x the norm of all
+    of ref), cosine of all) over ref's keys."""
+    total = math.sqrt(sum(float(np.sum(v.astype(np.float64) ** 2))
+                          for v in ref.values()))
+    worst = max(float(np.linalg.norm(got[k] - v)
+                      / (np.linalg.norm(v) + 1e-6 * total))
+                for k, v in ref.items())
+    x = np.concatenate([got[k].ravel() for k in ref]).astype(np.float64)
+    y = np.concatenate([v.ravel() for v in ref.values()]).astype(np.float64)
+    return worst, float(x @ y / (np.linalg.norm(x) * np.linalg.norm(y)))
+
+
+def hold_tp(one, ranks, mesh_shape, lr, where, smi):
+    """18a's readings: rank_tp's outputs of the ranks (a mesh_shape group)
+    against one process's, an Adam step at learning rate lr. Returns the
+    readings."""
+    n_data, n_model = mesh_shape
+    ref = one["specs"][0]
+    outs = [r["specs"][0] for r in ranks]
+    r0 = outs[0]
+    g, gref = ({k: v["grad"] for k, v in o["full"].items() if "grad" in v}
+               for o in (r0, ref))
+    worst, cos = _grads_held(g, gref, DP_REL)
+    # the moments' shards against the one-process moments' slices
+    mworst = {}
+    for rank, o in enumerate(outs):
+        m = rank % n_model
+        for name, full, shard, dim in o["sharded"]:
+            got = o["moment_shards"].get(name, {})
+            for k, v in got.items():
+                want = np.take(ref["full"][name][k], range(
+                    m * shard[dim], (m + 1) * shard[dim]), axis=dim)
+                assert v.shape == want.shape == tuple(shard), (name, k)
+                w, c = _grads_held({name: v}, {name: want}, DP_REL)
+                mworst[k] = max(mworst.get(k, 0.0), w)
+                assert c >= DP_COS, (name, k, c)
+    # the parameters after the step apart from one process's by > 0.1 lr,
+    # and of them those the gradients do not explain: Adam's first step
+    # moves an element by lr g / (|g| + 1e-8), so two such steps are that
+    # far apart only where the two gradients' signs differ or one is
+    # below 1e-7
+    apart = total = unexplained = 0
+    for k, v in r0["full"].items():
+        far = np.abs(v["param"] - ref["full"][k]["param"]) > 0.1 * lr
+        a = v.get("grad", np.zeros_like(v["param"]))
+        b = ref["full"][k].get("grad", np.zeros_like(a))
+        flip = (np.sign(a) != np.sign(b)) | (np.minimum(
+            np.abs(a), np.abs(b)) < 1e-7)
+        apart += int(far.sum())
+        unexplained += int((far & ~flip).sum())
+        total += far.size
+    # replicated state bit-equal within each model group, shards within
+    # each data group
+    equal = ([len({o["digests"][0] for o in outs[d * n_model:
+                                                 (d + 1) * n_model]}) == 1
+              for d in range(n_data)]
+             + [len({o["digests"][1] for o in outs[m::n_model]}) == 1
+                for m in range(n_model)])
+    peak = [o["peak_gb"] for o in outs]
+    ms = float(np.median([max(t) for t in zip(*(o["step_ms"]
+                                                 for o in outs))]))
+    one_ms = float(np.median(ref["step_ms"]))
+    rec = dict(mesh=list(mesh_shape), spec_leaves=r0["spec_leaves"],
+               sharded=[list(x[:3]) for x in r0["sharded"]],
+               launches=[list(o["launches"]) for o in outs],
+               cosine=cos, worst_tensor=worst, moments_worst=mworst,
+               adam_err=max(o["adam_err"] for o in outs),
+               params_apart=apart / total, unexplained=unexplained,
+               peak_gb=peak,
+               one_process_peak_gb=ref["peak_gb"], ms=ms,
+               one_process_ms=one_ms, seconds=[o["seconds"] for o in outs])
+    msg = (f"18a: tensor_parallel_step on {where} as a {tuple(mesh_shape)} "
+           f"mesh vs one process at batch {TRAIN_BATCH}: sharded leaves "
+           f"{r0['spec_leaves']} (expected {TP_LEAVES}); shards "
+           f"{rec['sharded']}; launches per rank {rec['launches']} "
+           f"(expected 3 forward + 2 backward); gradient cosine {cos:.9f} "
+           f"(>= {DP_COS}), worst tensor {worst:.3e} (<= {DP_REL}); moment "
+           f"shards' worst {mworst} (exp_avg <= {DP_REL}, exp_avg_sq <= "
+           f"{2 * DP_REL}); Adam's first step on each rank's own gradient "
+           f"within {rec['adam_err']:.2e} lr (<= {TP_ADAM_ERR}); parameters "
+           f"more than 0.1 lr from one process's at {100 * apart / total:.4f}"
+           f"% of the elements, {unexplained} of them where the gradients' "
+           f"signs agree (expected 0); replicated state "
+           f"bit-equal within each model group and shards within each data "
+           f"group {equal}; peak GB per rank "
+           f"{[round(p, 3) for p in peak]}, one process "
+           f"{ref['peak_gb']:.3f}; the step median {ms:.2f} ms, one process "
+           f"{one_ms:.2f} ms [{smi}]")
+    print(msg, flush=True)
+    assert r0["spec_leaves"] == TP_LEAVES, msg
+    for o in outs:
+        for name, full, shard, dim in o["sharded"]:
+            want = list(full)
+            want[dim] //= n_model
+            assert list(shard) == want, msg
+            assert all(v == tuple(want) for v in
+                       o["moment_shapes"].get(name, {}).values()), msg
+    assert all(o["launches"] == (3, 0, 2) for o in outs), msg
+    assert ref["launches"] == (3, 0, 2), msg
+    assert all(equal), msg
+    assert cos >= DP_COS and worst <= DP_REL, msg
+    assert mworst.get("exp_avg", 0.0) <= DP_REL, msg
+    assert mworst.get("exp_avg_sq", 0.0) <= 2 * DP_REL, msg
+    assert rec["adam_err"] <= TP_ADAM_ERR and ref["adam_err"] <= (
+        TP_ADAM_ERR), msg
+    assert unexplained == 0, msg
+    return rec
+
+
+def dryrun_ranks(n, device):
+    """dryrun_multichip's n ranks (parallel.spawn; gloo where ranks share
+    a card, NCCL where each has its own): rank 0's line, every rank's
+    result."""
+    from umr_tpu_torch.experiments import dryrun_multichip
+    from umr_tpu_torch.parallel import spawn
+
+    outs = spawn(dryrun_multichip.rank, n, n, device, device=device)
+    return dryrun_multichip.line(n, outs[0]), outs
+
+
+def hold_dryrun(line, outs, n, where, smi):
+    """18b's readings: JAX's line with the (n/2, 2) mesh and 143 sharded
+    leaves, a finite loss equal on every rank, 3 + 2 launches a rank."""
+    want = f"(mesh {{'data': {n // 2}, 'model': 2}}, 143 tp-sharded weight"
+    msg = (f"18b: {line} on {where}; launches per rank "
+           f"{[o['launches'] for o in outs]} (expected 3 forward + 2 "
+           f"backward) [{smi}]")
+    print(msg, flush=True)
+    assert want in line and math.isfinite(outs[0]["total"]), msg
+    assert all(o["total"] == outs[0]["total"] for o in outs), msg
+    assert all(o["launches"] == (3, 0, 2) for o in outs), msg
+    return dict(line=line, launches=[list(o["launches"]) for o in outs])
+
+
+def tensor_parallel(smi, seg, pvi):
+    """Phase 18. 18a: one s2 Adam step at a global batch of TRAIN_BATCH on
+    two ranks sharing the card (gloo) as a (1, 2) mesh, against one
+    process (hold_tp). 18b: dryrun_multichip 4 on the card (2 x 2 over
+    gloo). 18c: check_fused_grads through the kernels (3 forward + 3
+    backward launches). 18d: soak_train's s2 and s1 at full width
+    (SOAK_S2, SOAK_S1): s2's trends, s1's loss and template (its IoU
+    trend printed), the launches of their steps. Returns the readings."""
+    from umr_tpu_torch.experiments import check_fused_grads, soak_train
+    from umr_tpu_torch.parallel import spawn
+
+    t_phase = time.perf_counter()
+    rec = {}
+    spec = tp_spec(seg, pvi, TRAIN_BATCH, 23)
+    t0 = time.perf_counter()
+    one = tp_rank(None, [dict(spec, full=None)])
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    ranks = spawn(tp_rank, 2, (1, 2), [spec], device="cuda")
+    t2 = time.perf_counter()
+    rec["18a"] = hold_tp(one, ranks, (1, 2), 1e-4, "2 ranks (gloo, one "
+                         "card)", smi)
+    rec["18a"]["seconds_total"] = dict(one_process=t1 - t0, ranks=t2 - t1)
+    print(f"18a: one process {t1 - t0:.1f} s, two ranks {t2 - t1:.1f} s",
+          flush=True)
+
+    t0 = time.perf_counter()
+    rec["18b"] = hold_dryrun(*dryrun_ranks(4, "cuda"), 4,
+                             "4 ranks (gloo, one card)", smi)
+    rec["18b"]["seconds"] = time.perf_counter() - t0
+
+    zero_launches()
+    fused = check_fused_grads.run("cuda")
+    torch.cuda.synchronize()
+    rec["18c"] = dict(fused, launches=list(launches()))
+    msg = (f"18c: check_fused_grads through the kernels: verts grad "
+           f"max|diff| {fused['dv']:.3e} (scale {fused['sv']:.3e}), tex "
+           f"grad max|diff| {fused['dt']:.3e} (scale {fused['st']:.3e}), "
+           f"bound 1e-5 + 1e-3 x scale; launches {launches()} (expected 3 "
+           f"forward + 3 backward) [{smi}]")
+    print(msg, flush=True)
+    assert fused["ok"] and launches() == (3, 0, 3), msg
+
+    for label, argv, want in (("s2", SOAK_S2, (3, 0, 2)),
+                              ("s1", SOAK_S1, (3, 1, 2))):
+        t0 = time.perf_counter()
+        zero_launches()
+        summary = soak_train.soak(argv)
+        torch.cuda.synchronize()
+        steps = int(argv[argv.index("--steps") + 1]) + 1
+        got = launches()
+        msg = (f"18d: soak_train {' '.join(argv)}: total loss head "
+               f"{summary['loss_head_mean']} -> tail "
+               f"{summary['loss_tail_mean']}, mask IoU "
+               f"{summary['mask_iou_head']} -> {summary['mask_iou_tail']}"
+               f"{' (not held)' if label == 's1' else ''}, "
+               f"template displacement {summary['template_disp']}; "
+               f"{summary['wall_s']} s, {summary['images_per_sec']} "
+               f"images/s over {steps - 1} steps; launches {got} (expected "
+               f"{steps} x {want}) [{smi}]")
+        print(msg, flush=True)
+        assert got == tuple(steps * w for w in want), msg
+        if label == "s2":
+            soak_train.check(summary)
+        else:
+            # stage 1's mask IoU trend is not held (above SOAK_S1)
+            disp = summary["template_disp"]
+            assert summary["decreased"], msg
+            assert len(disp) >= 2 and max(disp) < 2.0, msg
+        rec[f"18d_{label}"] = dict(summary, launches=list(got),
+                                   seconds=time.perf_counter() - t0)
+    rec["phase_s"] = time.perf_counter() - t_phase
+    print(f"phase 18: {rec['phase_s']:.1f} s [{smi}]", flush=True)
+    return rec
+
+
+def tp_cards(n, smi, seg, pvi):
+    """python3 chip_smoke.py --cards N (N even): 18a on N ranks, one per
+    card (NCCL), as an (N/2, 2) mesh at a global batch of TRAIN_BATCH,
+    against one process; then dryrun_multichip N on the N cards."""
+    from umr_tpu_torch.parallel import spawn
+
+    mesh_shape = (n // 2, 2)
+    spec = tp_spec(seg, pvi, TRAIN_BATCH, 23)
+    one = tp_rank(None, [dict(spec, full=None)])
+    torch.cuda.empty_cache()
+    ranks = spawn(tp_rank, n, mesh_shape, [spec], device="cuda")
+    where = f"{n} ranks (NCCL, {n} cards)"
+    rec = {"18a": hold_tp(one, ranks, mesh_shape, 1e-4, where, smi),
+           "18b": hold_dryrun(*dryrun_ranks(n, "cuda"), n, where, smi)}
+    print(json.dumps({"tensor_parallel": rec}), flush=True)
+    return rec
+
+
+def multi_card(n, phases=("17", "18")):
+    """python3 chip_smoke.py --cards N [--phase 17|18], on a machine with N
+    cards. Phase 17: its steps on N ranks, one per card, that
+    parallel.launch spawns as the training entry points do (NCCL),
+    against one process at the global batch (hold_ranks), then the s2
+    step at N x TRAIN_BATCH (each rank TRAIN_BATCH images) timed against
+    one process at TRAIN_BATCH: the images a second of N cards beside
+    one card's; then 17d's training run on the N ranks (hold_train).
+    Phase 18 (N even): tp_cards."""
     from umr_tpu_torch.experiments.raster_bench import synthetic_semantic
     from umr_tpu_torch.mesh import build_template
-    from umr_tpu_torch.config import Config
     from umr_tpu_torch.ops import raster_kernel
-    from umr_tpu_torch.parallel import launch
 
     if torch.cuda.device_count() != n:
         raise SystemExit(f"chip_smoke --cards {n}: "
@@ -1940,6 +2230,20 @@ def multi_card(n):
     print(f"nvidia-smi: {smi}", flush=True)
     raster_kernel.build()
     seg, pvi = synthetic_semantic(build_template(SUBDIVIDE, 1, 6))
+    if "17" in phases:
+        dp_cards(n, smi, seg, pvi)
+    if "18" in phases:
+        tp_cards(n, smi, seg, pvi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
+def dp_cards(n, smi, seg, pvi):
+    """multi_card's phase 17 (its docstring). Returns the readings."""
+    from umr_tpu_torch.config import Config
+    from umr_tpu_torch.parallel import launch
+
     s2, s1 = dp_specs(seg, pvi)
     wide = dp_s2_spec(seg, pvi, n * TRAIN_BATCH, 19)
     t0 = time.perf_counter()
@@ -1975,9 +2279,7 @@ def multi_card(n):
           f"[{smi}]", flush=True)
     rec["17d"] = hold_train([r[1] for r in ranks], dcfg, where, smi)
     print(json.dumps({"data_parallel": rec}))
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
+    return rec
 
 
 def main():
@@ -2787,6 +3089,18 @@ def main():
           "process")
     dp_rec = data_parallel(smi, tcfg, tloader, seg, pvi, step_ms)
 
+    phase("18. tensor parallelism: one s2 Adam step (batch 16) on two ranks "
+          "sharing the card as a (1, 2) mesh against one process; "
+          "dryrun_multichip 4 on the card; check_fused_grads through the "
+          "kernels; soak_train s2 (100 steps, batch 16) and s1 (150 steps, "
+          "batch 64)")
+    tp_rec = tensor_parallel(smi, seg, pvi)
+    tp_launch = {"tensor_parallel_launches": tp_rec["18a"]["launches"],
+                 "dryrun_launches": tp_rec["18b"]["launches"],
+                 "fused_check_launches": tp_rec["18c"]["launches"],
+                 "soak_launches": {k: tp_rec[f"18d_{k}"]["launches"]
+                                   for k in ("s2", "s1")}}
+
     record = {"kernels": [{
         "name": "raster_fwd", "route": "cuda", "source": KERNEL_SRC,
         "replaces": TPU_KERNEL, "launches": train_fwd,
@@ -2836,6 +3150,8 @@ def main():
         "step_slices": fwd_slices,
         "variants": variants_rec,
         "data_parallel": dp_rec,
+        "tensor_parallel": tp_rec,
+        **tp_launch,
         "ptxas": {k: v for k, v in usage.items()
                   if k.startswith("raster_fwd")},
     }, {
@@ -2877,6 +3193,7 @@ def main():
             for st in ("s2", "s1") for k, v in variants_rec[st].items()},
         "variant_slices": {k: v["bwd"] for k, v in
                            variants_rec["slices"].items()},
+        **tp_launch,
         "ptxas": {k: v for k, v in usage.items()
                   if k.startswith("raster_bwd")},
     }]}
@@ -2891,6 +3208,6 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--cards"]:
         if not torch.cuda.is_available():
             raise SystemExit("chip_smoke: no CUDA device visible")
-        multi_card(int(sys.argv[2]))
+        multi_card(int(sys.argv[2]), tuple(sys.argv[4:5]) or ("17", "18"))
     else:
         main()

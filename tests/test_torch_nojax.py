@@ -4,7 +4,8 @@ files: avg_uv, test_kp, the synthetic category with its loader and
 curriculum tools, and the CUB data path: train_s1 and test_iou
 --visualize from a --cub_dir with no loader passed, the native EDT, the
 JPEG reader's module; train_s1 from the --cub_dir on two ranks spawned
-by parallel.spawn, which report what they imported) runs with jax,
+by parallel.spawn, which report what they imported; dryrun_multichip's
+tensor-parallel step on two CPU ranks) runs with jax,
 flax, optax, orbax, absl, imageio, cv2, PIL and the JAX package umr_tpu
 unavailable, and no file of it (nor chip_smoke.py, nor the rank side
 it spawns, tests/torch_ranks.py) imports them: the machine with the
@@ -157,6 +158,10 @@ from umr_tpu_torch.parallel import spawn
 ranks = spawn(probe_train, 2, cfg.replace(name="cub_s1_2ranks"),
               device="cpu")
 assert ranks == [(1, []), (1, [])], ranks
+# tensor parallelism: the dry run on 2 CPU ranks as a (1, 2) mesh
+from umr_tpu_torch.experiments import dryrun_multichip
+line = dryrun_multichip.run(2, "cpu")
+assert "{'data': 1, 'model': 2}, 143 tp-sharded" in line, line
 cfg = Config(image_size=32, subdivide=2, tex_size=2, num_hypo_cams=2,
              nz_feat=16, z_dim=8, model_path=path, split="test",
              batch_size=2, cub_dir=cub_dirs[1], cub_cache_dir=cub_dirs[3],
@@ -198,7 +203,10 @@ def test_no_file_of_the_port_imports_jax():
               "parallel/mesh.py", "parallel/__init__.py",
               "models/mesh_net.py", "ops/raster_kernel.py", "data/cub.py",
               "data/loader.py", "native.py", "jpeg.py",
-              "training/visuals.py"):
+              "training/visuals.py", "parallel/tensor.py",
+              "experiments/dryrun_multichip.py",
+              "experiments/soak_train.py",
+              "experiments/check_fused_grads.py"):
         assert ROOT / "umr_tpu_torch" / f in files, f
     offenders = [str(f.relative_to(ROOT)) for f in files
                  if pat.search(f.read_text())]

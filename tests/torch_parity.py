@@ -190,7 +190,7 @@ def _jax_grads_torch_layout(jgrads, names, stage, num_cams, n_up):
 
 
 def step_parity(stage, kw, jax_kw, lr, B=4, image_size=32, impl="auto",
-                mesh=None, on_inputs=None):
+                mesh=None, on_inputs=None, tp_min_size=1 << 12):
     """One training step of the port (stage 1 or 2, Config(**kw)) and of
     the JAX package's (Config(**kw, **jax_kw)) on the same weights (the
     port's seeded init carried to flax; the discriminator's flax init
@@ -204,7 +204,9 @@ def step_parity(stage, kw, jax_kw, lr, B=4, image_size=32, impl="auto",
     mesh=n runs the JAX step as umr_tpu.parallel.data_parallel_step over
     an n-device mesh (the batch sharded, the state replicated), and adds
     the one-process port step's own gradients (port_grad: p.grad after
-    the step). on_inputs, given, is called before either step runs with
+    the step); mesh=(n_data, n_model) runs it as tensor_parallel_step
+    over make_mesh_2d(n_data, n_model) with shard_state(min_size=
+    tp_min_size), the batch sharded over "data". on_inputs, given, is called before either step runs with
     what a port step on ranks needs (rank_steps): init (the port's
     weights), db (the prepared global batch) and draws (global, numpy)."""
     import os
@@ -250,7 +252,7 @@ def step_parity(stage, kw, jax_kw, lr, B=4, image_size=32, impl="auto",
                     "pixel_rows_per_block"]), tex_size=2)
         jmodel, jdisc, _, _, jstep = jsteps.build_s2_step(jcfg, jt, jpl, pvi)
         num_cams = cfg.num_hypo_cams
-        if mesh:
+        if isinstance(mesh, int):
             from umr_tpu.parallel import data_parallel_step, make_mesh
             jstep = data_parallel_step(jstep, make_mesh(mesh))
     else:
@@ -302,6 +304,13 @@ def step_parity(stage, kw, jax_kw, lr, B=4, image_size=32, impl="auto",
         on_inputs(dict(init=init, db=db,
                        draws={k: np_of(v) for k, v in draws.items()}))
     args = (jnp.float32(0.0),) if stage == 1 else ()
+    if isinstance(mesh, tuple):
+        from umr_tpu.parallel import (make_mesh_2d, shard_batch, shard_state,
+                                      tensor_parallel_step)
+        mesh2d = make_mesh_2d(*mesh)
+        jstate, jspecs = shard_state(jstate, mesh2d, min_size=tp_min_size)
+        jstep = tensor_parallel_step(jstep, mesh2d, jspecs)
+        jbatch = shard_batch(jbatch, mesh2d)
     jstate1, jsc = jstep(jstate, jbatch, key, *args)
 
     p0 = params_of(state)
@@ -340,3 +349,132 @@ def grads_close(g, jg, rel, cos):
     c = cosine(g, jg)
     assert c >= cos, c
     return worst, c
+
+
+_TO_TORCH_DIM = {"linear": (1, 0), "conv": (2, 3, 1, 0)}
+
+
+def meta_s2_state(cfg, template):
+    """A port s2 TrainState's modules and Adam at cfg on the meta device:
+    the shapes without the memory (Config()'s texture fc is 8192 x
+    8192)."""
+    from umr_tpu_torch.models import Discriminator, LPIPSAlex, MeshNet
+    from umr_tpu_torch.training import steps as tsteps
+
+    with torch.device("meta"):
+        model = MeshNet(template, input_size=cfg.image_size,
+                        nz_feat=cfg.nz_feat, z_dim=cfg.z_dim,
+                        num_hypo_cams=cfg.num_hypo_cams)
+        disc = Discriminator(in_dim=3, img_size=cfg.image_size)
+        lpips = LPIPSAlex()
+        opt = tsteps.make_optimizer(cfg, list(model.parameters())
+                                    + list(disc.parameters()))
+    return tsteps.TrainState(step=0, updates=0, model=model, disc=disc,
+                             lpips=lpips, optimizer=opt, generator=None)
+
+
+def jax_partition_specs(state, template, num_cams, min_size, n_model=2,
+                        shapes_only=False):
+    """The JAX package's param_partition_specs (umr_tpu.parallel, over a
+    make_mesh_2d(n, n_model) mesh) on its s2 TrainState carrying a port
+    TrainState's model (flax_variables; shapes_only: the same leaves as
+    jax.ShapeDtypeStruct, for a model on the meta device), discriminator
+    and LPIPS (the port's, in the flax layout), with optax's Adam state
+    on the parameters (the Config's optimizer, jax.eval_shape of its
+    init). Returns ({port name: torch dimension} of every leaf it
+    shards, the port names of every leaf but the step and Adam's
+    count): 'model.<key>', 'disc.<key>', 'lpips.<key>' and '<param
+    name>:exp_avg' / ':exp_avg_sq' for optax's mu / nu, as
+    umr_tpu_torch.parallel.param_partition_specs names them."""
+    import jax
+    import jax.numpy as jnp
+
+    from umr_tpu.config import Config as JaxConfig
+    from umr_tpu.parallel import make_mesh_2d, param_partition_specs
+    from umr_tpu.models.reference_io import _apply_transform, build_key_map
+    from umr_tpu.training import steps as jsteps
+
+    n_up = min(5, int(np.log2(template.uv_image_size()[0])))
+    maps = build_key_map(2, num_cams, n_up)
+    where = {}                      # flax path -> (port name, transform)
+
+    def leaf(t, tf):
+        shape = tuple(t.shape)
+        if tf == "linear":
+            shape = shape[::-1]
+        elif tf == "conv":
+            shape = tuple(shape[i] for i in (2, 3, 1, 0))
+        if shapes_only:
+            return jax.ShapeDtypeStruct(shape, jnp.float32)
+        return _apply_transform(np_of(t), tf, to_flax=True)
+
+    def put(tree, path, value):
+        for p in path[:-1]:
+            tree = tree.setdefault(p, {})
+        tree[path[-1]] = value
+
+    sd = state.model.state_dict()
+    if shapes_only:
+        variables = {"buffers": {}}
+        for coll, m in zip(("params", "batch_stats", "buffers", "template"),
+                           maps):
+            for path, tkey, tf in m:
+                put(variables.setdefault(coll, {}), path,
+                    leaf(sd[tkey], tf))
+    else:
+        variables = flax_variables(state.model, template, num_cams)
+    for coll, m in zip(("params/model", "batch_stats/model", "buffers",
+                        "template"), maps):
+        for path, tkey, tf in m:
+            where[coll + "/" + "/".join(path)] = (f"model.{tkey}", tf)
+    disc, dsd = {}, state.disc.state_dict()
+    for i, t in enumerate(["convs.0", "convs.1", "convs.2", "convs.3",
+                           "head"]):
+        put(disc, (f"Conv_{i}", "kernel"), leaf(dsd[f"{t}.weight"], "conv"))
+        put(disc, (f"Conv_{i}", "bias"), leaf(dsd[f"{t}.bias"], "copy"))
+        where[f"params/disc/Conv_{i}/kernel"] = (f"disc.{t}.weight", "conv")
+        where[f"params/disc/Conv_{i}/bias"] = (f"disc.{t}.bias", "copy")
+    put(disc, ("Dense_0", "kernel"), leaf(dsd["fc.weight"], "linear"))
+    put(disc, ("Dense_0", "bias"), leaf(dsd["fc.bias"], "copy"))
+    where["params/disc/Dense_0/kernel"] = ("disc.fc.weight", "linear")
+    where["params/disc/Dense_0/bias"] = ("disc.fc.bias", "copy")
+    lpips, lsd = {}, state.lpips.state_dict()
+    for i in range(5):
+        for k, tf, part in (("weight", "conv", "kernel"),
+                            ("bias", "copy", "bias")):
+            put(lpips, (f"conv{i}", part), leaf(lsd[f"convs.{i}.{k}"], tf))
+            where[f"lpips/alex/conv{i}/{part}"] = (f"lpips.convs.{i}.{k}",
+                                                   tf)
+    for path in list(where):
+        for pre, moment in (("params/", "mu"), ("params/", "nu")):
+            if path.startswith(pre):
+                name, tf = where[path]
+                suffix = "exp_avg" if moment == "mu" else "exp_avg_sq"
+                where[f"{moment}/{path[len(pre):]}"] = (f"{name}:{suffix}",
+                                                        tf)
+    params = {"model": variables["params"], "disc": disc}
+    jcfg = JaxConfig()
+    jstate = jsteps.TrainState(
+        step=jnp.zeros((), jnp.int32), params=params,
+        batch_stats={"model": variables["batch_stats"]},
+        buffers=variables["buffers"], template=variables["template"],
+        opt_state=jax.eval_shape(jsteps.make_optimizer(jcfg).init, params),
+        lpips={"alex": lpips})
+    specs = param_partition_specs(jstate, make_mesh_2d(
+        len(jax.devices()) // n_model, n_model), min_size=min_size)
+    sharded, names = {}, set()
+    for path, spec in jax.tree_util.tree_flatten_with_path(specs)[0]:
+        keys = [str(getattr(k, "key", getattr(k, "name", getattr(
+            k, "idx", k)))) for k in path]
+        if keys[0] == "opt_state":      # (ScaleByAdamState, ...)[0].mu/nu
+            keys = keys[2:]
+        key = "/".join(keys)
+        if key in ("step", "count"):
+            assert "model" not in tuple(spec), key
+            continue
+        name, tf = where[key]
+        names.add(name)
+        if "model" in tuple(spec):
+            d = tuple(spec).index("model")
+            sharded[name] = _TO_TORCH_DIM.get(tf, range(8))[d]
+    return sharded, names

@@ -80,7 +80,14 @@ Port module -> JAX counterpart (umr_tpu/...):
   parallel/mesh.py           parallel/mesh.py's data parallelism (make_mesh,
                              shard_batch, replicate) over torch.distributed,
                              with spawn and the entry points' launch; the
-                             global BatchNorm in models/net_blocks.py
+                             global BatchNorm in models/net_blocks.py;
+                             make_mesh_2d
+  parallel/tensor.py         parallel/mesh.py's tensor parallelism
+                             (param_partition_specs, shard_state,
+                             tensor_parallel_step)
+  experiments/dryrun_multichip.py, soak_train.py, check_fused_grads.py
+                             __graft_entry__.py::dryrun_multichip,
+                             tools/soak_train.py, tools/check_fused_grads.py
 
 Parity traps the port reproduces:
   * heads.py: the 1x1 `enc_conv1` for inputs under 64 px; CHW flatten

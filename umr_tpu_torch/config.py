@@ -21,7 +21,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from .parallel import world_size
+from .parallel import data_rank_and_size, world_size
 
 RESNET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
 RESNET_STD = np.array([0.229, 0.224, 0.225], np.float32)
@@ -145,7 +145,7 @@ class Config:
                     f"--{k}={getattr(self, k)} is a reference code path this "
                     f"rebuild does not implement; only {k}={default} is "
                     "supported.")
-        size = world_size()
+        size = data_rank_and_size()[1]
         if self.batch_size % size:
             raise ValueError(
                 f"--batch_size={self.batch_size} is the global batch: the "

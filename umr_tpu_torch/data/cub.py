@@ -29,7 +29,7 @@ import numpy as np
 from .. import image as image_utils
 from ..native import edt_barrier
 from ..ops.quaternion import mirror_quat_np, quat_from_matrix_np
-from ..parallel import rank_and_size
+from ..parallel import data_rank_and_size
 from ..png import read_image
 from .loader import DataLoader
 
@@ -274,7 +274,7 @@ def data_loader(opts, shuffle=True, mirror=True, process_shard=None,
     dset = CUBDataset(opts, mirror=mirror, device=device)
     if process_shard is None:
         process_shard = shuffle
-    pi, pc = rank_and_size() if process_shard else (0, 1)
+    pi, pc = data_rank_and_size() if process_shard else (0, 1)
     return DataLoader(
         dset, opts.batch_size // pc, shuffle=shuffle,
         num_workers=opts.n_data_workers, drop_last=True, seed=opts.seed,

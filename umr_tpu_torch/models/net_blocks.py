@@ -16,6 +16,8 @@ Under data parallelism (parallel/mesh.py) every BatchNorm in train mode
 normalises over the global batch, as flax's BatchNorm does under the JAX
 package's sharded step: global_batch_norm, over all_reduce only (gloo
 has no all_gather on CUDA tensors, which torch.nn.SyncBatchNorm needs).
+Under make_mesh_2d the sums span the data group, which holds the global
+batch once (the ranks of a model group hold the same block).
 The running statistics take the global mean and the unbiased global
 variance (torch's convention; flax's is biased). With no group, or in
 eval mode, each is torch's module, bit for bit.
@@ -26,7 +28,7 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
-from ..parallel import all_reduce_, world_size
+from ..parallel import all_reduce_, data_group, data_rank_and_size
 
 
 class Conv2d(nn.Conv2d):
@@ -61,12 +63,12 @@ class _GlobalBatchNorm(torch.autograd.Function):
         dims = [0] + list(range(2, x.ndim))
         shape = [1, C] + [1] * (x.ndim - 2)
         sums = torch.cat([x.sum(dims), x.new_full((1,), x.numel() // C)])
-        all_reduce_([sums], mean=False)
+        all_reduce_([sums], mean=False, group=data_group())
         count = sums[C]
         mean = sums[:C] / count
         xc = x - mean.view(shape)
         var = (xc * xc).sum(dims)
-        all_reduce_([var], mean=False)
+        all_reduce_([var], mean=False, group=data_group())
         var = var / count
         invstd = torch.rsqrt(var + bn.eps)
         x_hat = xc * invstd.view(shape)
@@ -88,7 +90,7 @@ class _GlobalBatchNorm(torch.autograd.Function):
         shape = [1, C] + [1] * (dy.ndim - 2)
         local = torch.cat([dy.sum(dims), (dy * x_hat).sum(dims)])
         sums = local.clone()
-        all_reduce_([sums], mean=False)
+        all_reduce_([sums], mean=False, group=data_group())
         dx = (dy - (sums[:C] / count).view(shape)
               - x_hat * (sums[C:] / count).view(shape)) * (
             invstd * weight).view(shape)
@@ -98,12 +100,12 @@ class _GlobalBatchNorm(torch.autograd.Function):
 class _FloatBatchNorm:
     """A BatchNorm on a float32 copy of its input (a float32 input is
     taken as is): after a bfloat16 conv it computes and returns float32.
-    In train mode under a group of more than one rank it normalises over
-    the global batch (_GlobalBatchNorm)."""
+    In train mode over a data axis of more than one rank it normalises
+    over the global batch (_GlobalBatchNorm)."""
 
     def forward(self, x):
         x = x.float()
-        if self.training and world_size() > 1:
+        if self.training and data_rank_and_size()[1] > 1:
             return _GlobalBatchNorm.apply(x, self.weight, self.bias, self)
         return super().forward(x)
 

@@ -20,6 +20,14 @@ Only all_reduce and broadcast are used: they are the collectives gloo
 runs on CUDA tensors, so one code path serves NCCL across cards, gloo on
 the CPU, and gloo between ranks that share one card (NCCL refuses that).
 
+make_mesh_2d lays the group out as JAX's ("data", "model") mesh for
+tensor parallelism (parallel/tensor.py): rank r at data coordinate
+r // n_model and model coordinate r % n_model. Under it the ranks of one
+model group hold one data block, so shard_batch, rank_block,
+rank_generator and the BatchNorms follow the data coordinate and the
+data axis's size (data_rank_and_size, data_group); without it they
+follow the rank and the world size, as before.
+
 The group is the process's default torch.distributed group. make_mesh
 joins it: from torchrun's environment (RANK, WORLD_SIZE, LOCAL_RANK,
 LOCAL_WORLD_SIZE, MASTER_ADDR/MASTER_PORT) or from explicit arguments.
@@ -34,6 +42,7 @@ launch whose rank fails; nothing falls back to one process.
 
 from __future__ import annotations
 
+import dataclasses
 import hashlib
 import os
 import pickle
@@ -54,6 +63,78 @@ def rank_and_size():
 
 def world_size():
     return rank_and_size()[1]
+
+
+@dataclasses.dataclass(frozen=True)
+class Mesh2D:
+    """The default group as a (n_data, n_model) mesh (make_mesh_2d): this
+    rank's coordinates, the group of the ranks that share its model
+    coordinate (data_group: the batch's blocks, over which gradients of
+    a weight's shard average) and of those that share its data
+    coordinate (model_group: a weight's shards)."""
+    n_data: int
+    n_model: int
+    data: int
+    model: int
+    data_group: object
+    model_group: object
+    world: object
+
+    @property
+    def shape(self):
+        return {"data": self.n_data, "model": self.n_model}
+
+
+_MESH = None
+
+
+def current_mesh():
+    """The Mesh2D that make_mesh_2d made on the current default group, or
+    None."""
+    if (_MESH is not None and dist.is_available() and dist.is_initialized()
+            and _MESH.world is dist.group.WORLD):
+        return _MESH
+    return None
+
+
+def data_rank_and_size():
+    """(data coordinate, data axis size) under make_mesh_2d; else
+    rank_and_size()."""
+    m = current_mesh()
+    return rank_and_size() if m is None else (m.data, m.n_data)
+
+
+def data_group():
+    """The ranks a batch reduction spans: make_mesh_2d's data group, or
+    None (the default group)."""
+    m = current_mesh()
+    return None if m is None else m.data_group
+
+
+def make_mesh_2d(n_data, n_model):
+    """Lay the default group out as a (n_data, n_model) mesh: the group
+    this process is in, else the one make_mesh joins from torchrun's
+    environment. Rank r sits at data
+    coordinate r // n_model and model coordinate r % n_model, as
+    np.array(devices).reshape(n_data, n_model) places JAX's devices.
+    Every rank creates every subgroup, in one order. A world size other
+    than n_data * n_model raises, as does a subgroup that fails to form.
+    Returns the Mesh2D, which the rank helpers follow from then on."""
+    global _MESH
+    if not (dist.is_available() and dist.is_initialized()):
+        make_mesh()
+    rank, size = dist.get_rank(), dist.get_world_size()
+    if size != n_data * n_model:
+        raise ValueError(f"make_mesh_2d({n_data}, {n_model}) needs "
+                         f"{n_data * n_model} ranks, the group has {size}")
+    d, m = divmod(rank, n_model)
+    data_groups = [dist.new_group([j * n_model + i for j in range(n_data)])
+                   for i in range(n_model)]
+    model_groups = [dist.new_group([j * n_model + i for i in range(n_model)])
+                    for j in range(n_data)]
+    _MESH = Mesh2D(n_data, n_model, d, m, data_groups[m], model_groups[d],
+                   dist.group.WORLD)
+    return _MESH
 
 
 def is_writer():
@@ -88,17 +169,17 @@ def make_mesh(rank=None, size=None, init_method=None, device=None):
 def shard_batch(batch):
     """This rank's contiguous block of every entry of a global batch dict
     (numpy arrays, tensors or lists, on their leading axis), as
-    NamedSharding(P("data")) places it. Raises where the world size does
-    not divide an entry's length. Without a group the batch is returned
-    as it is."""
-    rank, size = rank_and_size()
+    NamedSharding(P("data")) places it: the block of its data coordinate
+    (data_rank_and_size). Raises where the data axis does not divide an
+    entry's length. Without a group the batch is returned as it is."""
+    rank, size = data_rank_and_size()
     if size == 1:
         return batch
     out = {}
     for k, v in batch.items():
         if len(v) % size:
             raise ValueError(f"shard_batch: {k} has {len(v)} rows, which "
-                             f"{size} ranks do not divide")
+                             f"{size} data ranks do not divide")
         b = len(v) // size
         out[k] = v[rank * b:(rank + 1) * b]
     return out
@@ -107,8 +188,9 @@ def shard_batch(batch):
 def rank_block(draw, n):
     """draw(m) -> m rows of random draws; returns this rank's block of n
     rows of draw(n * world size), the draws one process makes for the
-    global batch. Without a group: draw(n)."""
-    rank, size = rank_and_size()
+    global batch (rank and size: data_rank_and_size). Without a group:
+    draw(n)."""
+    rank, size = data_rank_and_size()
     if size == 1:
         return draw(n)
     return draw(n * size)[rank * n:(rank + 1) * n]
@@ -117,9 +199,10 @@ def rank_block(draw, n):
 def rank_generator(generator):
     """A generator of this rank's own, seeded from `generator`'s state
     and the rank, for draws that depend on the rank's own data (the
-    camera hypothesis); `generator` is not advanced. Without a group:
-    `generator` itself."""
-    rank, size = rank_and_size()
+    camera hypothesis); `generator` is not advanced. The ranks of one
+    model group (make_mesh_2d) share the stream of their data coordinate.
+    Without a group: `generator` itself."""
+    rank, size = data_rank_and_size()
     if size == 1 or generator is None:
         return generator
     h = hashlib.sha256(generator.get_state().numpy().tobytes())
@@ -161,28 +244,33 @@ def _unflatten(ts, flat):
         off += n
 
 
-def all_reduce_(tensors, mean=True):
-    """Sum (mean=False) or mean the tensors over the ranks, in place, with
-    one all_reduce per dtype and device. Without a group: nothing."""
-    size = world_size()
+def all_reduce_(tensors, mean=True, group=None):
+    """Sum (mean=False) or mean the tensors over the ranks of `group` (the
+    default group if None), in place, with one all_reduce per dtype and
+    device. Without a group, or in a group of one: nothing."""
+    size = (world_size() if group is None or not dist.is_initialized()
+            else dist.get_world_size(group))
     tensors = list(tensors)
     if size == 1 or not tensors:
         return tensors
     for ts, flat in _flat_groups(tensors):
-        dist.all_reduce(flat)
+        dist.all_reduce(flat, group=group)
         if mean:
             flat.div_(size)
         _unflatten(ts, flat)
     return tensors
 
 
-def broadcast_(tensors, src=0):
-    """Copy rank src's values into every rank's tensors, in place, one
-    broadcast per dtype and device. Without a group: nothing."""
-    if world_size() == 1:
+def broadcast_(tensors, src=0, group=None):
+    """Copy (global) rank src's values into the tensors of every rank of
+    `group` (the default group if None), in place, one broadcast per
+    dtype and device. Without a group, or in a group of one: nothing."""
+    size = (world_size() if group is None or not dist.is_initialized()
+            else dist.get_world_size(group))
+    if size == 1:
         return
     for ts, flat in _flat_groups(tensors):
-        dist.broadcast(flat, src)
+        dist.broadcast(flat, src, group=group)
         _unflatten(ts, flat)
 
 

@@ -75,7 +75,8 @@ equal shards the mean over the ranks is the global batch's value. The
 VAE noise and the GAN angles are drawn at the global shape (each rank
 its block: one process's draws), the camera hypothesis from the rank's
 own stream; injected draws are global and each rank takes its block. No
-group: none of this runs.
+group: none of this runs. Tensor parallelism (parallel/tensor.py) wraps
+the s2 step_fn: ranks and blocks then follow the data coordinate.
 
 The step's layers are torch.profiler ranges ("s2.forward" around the
 loss, inside it "s2.model", "s2.pass1_fold", "s2.lpips", "s2.pass2_hard"
@@ -127,6 +128,8 @@ class TrainState:
     lpips: LPIPSAlex                 # frozen
     optimizer: torch.optim.Optimizer
     generator: torch.Generator       # the step's random draws
+    shards: Optional[object] = None  # parallel/tensor.py::Shards, under
+                                     # tensor parallelism (shard_state)
 
 
 def learning_rate(cfg: Config, updates):
@@ -244,7 +247,10 @@ def _train_step(cfg: Config, state: TrainState, batch, device, prefix,
     and, every optim_bs batches, the update with the mean of their
     gradients at the step's learning rate. In a group of ranks the
     gradients are averaged over the ranks before the update and the
-    scalars are their means over the ranks. Returns (state, scalars)."""
+    scalars are their means over the ranks; under tensor parallelism
+    (state.shards, parallel/tensor.py) each sharded parameter's gradient
+    slice goes to its shard after the backward, and the shards reduce
+    over the data group. Returns (state, scalars)."""
     batch = {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
     state.model.train()
     state.disc.train()
@@ -256,6 +262,8 @@ def _train_step(cfg: Config, state: TrainState, batch, device, prefix,
         total, sc = loss_fn(batch)
     with record_function(f"{prefix}.backward"):
         total.backward()
+    if state.shards is not None:
+        state.shards.take_grads()
     state.step += 1
     sc = {name: v.detach() for name, v in sc.items()}
     if world_size() > 1:
@@ -264,8 +272,11 @@ def _train_step(cfg: Config, state: TrainState, batch, device, prefix,
         sc = dict(zip(sc, values.unbind()))
     if state.step % k == 0:
         with record_function(f"{prefix}.optimizer"):
-            all_reduce_([p.grad for group in opt.param_groups
-                         for p in group["params"] if p.grad is not None])
+            if state.shards is None:
+                all_reduce_([p.grad for group in opt.param_groups
+                             for p in group["params"] if p.grad is not None])
+            else:
+                state.shards.reduce_grads()
             if k > 1:
                 for group in opt.param_groups:
                     for p in group["params"]:
