@@ -28,7 +28,11 @@ over gloo, held against one process at the global batch) and tensor
 parallelism with the checking tools (one s2 Adam step on two ranks as a
 (1, 2) mesh against one process; dryrun_multichip 4 on the card;
 check_fused_grads through the kernels; soak_train of both stages at full
-width), checks that each path went through the kernels, and times kernels,
+width) and the off-path tools (profile_step at full width, each row's
+launches; pretrain_trunk and pretrain_lpips on the category's images into
+a temporary directory, their files loaded by build_s2_step's init_fn
+under the weight overrides, weights/ untouched; voxelize on the card
+against the CPU), checks that each path went through the kernels, and times kernels,
 plain versions, the training steps and the handoff's entry points. Every
 run writes into a fresh temporary directory.
 
@@ -2282,6 +2286,190 @@ def dp_cards(n, smi, seg, pvi):
     return rec
 
 
+# phase 19, the off-path tools: profile_step at bench.py's s2 width (each
+# row's launches per call), both RotNet pretraining tools on the synthetic
+# category's images (phase 14's, generate_dataset seed 0) into a temporary
+# directory, weights/ untouched, their files loaded by build_s2_step's
+# init_fn under UMR_TPU_RESNET_WEIGHTS / UMR_TPU_LPIPS_WEIGHTS; the
+# voxelizer on the card against the CPU on 16 s2 meshes.
+PROFILE_SIZES = dict(batch=TRAIN_BATCH, size=IMAGE_SIZE, subdivide=SUBDIVIDE,
+                     tex=6, hypo=8, aa=True)
+PROFILE_ITERS = 4
+# (forward, backward) launches of one call of each row (the others: none)
+PROFILE_LAUNCHES = {"FULL step": (3, 2),
+                    "fused hypo render fwd+bwd (B*K)": (1, 1),
+                    "hard render fwd (B)": (1, 0),
+                    "GAN unseen rgb render fwd+bwd (B)": (1, 1),
+                    "part-matching fwd+bwd (B)": (2, 2)}
+PRETRAIN_STEPS = 30
+VOXEL_R = 32
+
+
+def weights_digest():
+    """sha256 of each file under weights/, by name."""
+    import hashlib
+
+    out = {}
+    wdir = os.path.join(ROOT, "weights")
+    for name in sorted(os.listdir(wdir)):
+        with open(os.path.join(wdir, name), "rb") as f:
+            out[name] = hashlib.sha256(f.read()).hexdigest()
+    return out
+
+
+def unit_box(verts):
+    """Meshes [B,V,3], each scaled by its largest extent into
+    [0.1, 0.9]^3."""
+    lo = verts.amin(1, keepdim=True)
+    span = (verts.amax(1, keepdim=True) - lo).amax(-1, keepdim=True)
+    return 0.1 + 0.8 * (verts - lo) / span
+
+
+def off_path(dev, smi, template):
+    """Phase 19. 19a: profile_step at PROFILE_SIZES, each row's launches
+    per call asserted (PROFILE_LAUNCHES) and the whole run's, the rows
+    ranked. 19b: pretrain_trunk and pretrain_lpips, PRETRAIN_STEPS each on
+    the category's images written as a train.npz in a temporary
+    directory: a falling loss (mean of the first 5 steps against the last
+    5), weights/ byte-identical, then build_s2_step's init_fn under both
+    overrides loads the new files (trunk_pretrained True). 19c: voxelize
+    at VOXEL_R on 19a's 16 s2 meshes on the card, equal to the CPU's.
+    Returns the readings."""
+    import shutil
+
+    from umr_tpu_torch.config import Config
+    from umr_tpu_torch.data.synthetic_category import generate_dataset
+    from umr_tpu_torch.experiments import (pretrain_lpips, pretrain_trunk,
+                                           profile_step)
+    from umr_tpu_torch.losses.composite import PartMatchingLoss
+    from umr_tpu_torch.models.weights import load_npz, load_resnet18_npz
+    from umr_tpu_torch.ops.voxelize import voxelize
+    from umr_tpu_torch.renderer import SoftRenderer
+    from umr_tpu_torch.training.steps import build_s2_step
+
+    t_phase = time.perf_counter()
+    rec = {}
+    zero_launches()
+    prof = profile_step.run(dev, PROFILE_ITERS, PROFILE_SIZES)
+    torch.cuda.synchronize()
+    total = launches()
+    rows = prof["rows"]
+    for r in rows:
+        want = PROFILE_LAUNCHES.get(r["name"], (0, 0))
+        assert (r["fwd_launches"], r["bwd_launches"]) == want, (r, want)
+    calls = 1 + PROFILE_ITERS
+    per_call = [sum(w[i] for w in PROFILE_LAUNCHES.values()) for i in (0, 1)]
+    msg = (f"19a: profile_step launches {total} (expected {calls} calls x "
+           f"{per_call[0]} forward, 0 p2f, {per_call[1]} backward)")
+    assert total == (calls * per_call[0], 0, calls * per_call[1]), msg
+    full = next(r["ms"] for r in rows if r["name"] == "FULL step")
+    parts = sum(r["ms"] for r in rows if r["name"] != "FULL step")
+    print(f"{msg}; the rows ranked, ms a call (batch {TRAIN_BATCH}, "
+          f"{IMAGE_SIZE}^2, AA, K=8, F={template.faces.shape[0]}, T2=36; "
+          f"isolation re-runs model work, so the components sum to "
+          f"{parts:.2f} against the FULL step's {full:.2f}) [{smi}]:")
+    for r in sorted(rows, key=lambda r: -r["ms"]):
+        print(f"  {r['name']:34s} {r['ms']:9.3f} ms  launches "
+              f"{r['fwd_launches']} + {r['bwd_launches']}", flush=True)
+    rec["19a"] = dict(rows=[{k: r[k] for k in ("name", "ms", "value",
+                                               "fwd_launches",
+                                               "bwd_launches")}
+                            for r in rows],
+                      launches=list(total), components_ms=parts,
+                      full_ms=full)
+    meshes = unit_box(prof["pieces"]["pred_vs"].detach())
+    del prof
+    torch.cuda.empty_cache()
+
+    before = weights_digest()
+    data = generate_dataset(template, GEN_N, seed=0, image_size=IMAGE_SIZE,
+                            batch=TRAIN_BATCH, device=dev)
+    tmp = tempfile.mkdtemp()
+    try:
+        npz = os.path.join(tmp, "train.npz")
+        np.savez(npz, img=data["img"])
+        del data
+        common = ["--data", npz, "--steps", str(PRETRAIN_STEPS), "--batch",
+                  str(TRAIN_BATCH), "--device", str(dev)]
+        zero_launches()
+        trunk = pretrain_trunk.main(common + [
+            "--out", os.path.join(tmp, "trunk", "resnet18_params.npz")])
+        lp = pretrain_lpips.main(common + [
+            "--out", os.path.join(tmp, "lpips", "lpips_alex.npz")])
+        assert launches() == (0, 0, 0), launches()
+        for label, r in (("pretrain_trunk", trunk), ("pretrain_lpips", lp)):
+            head, tail = np.mean(r["losses"][:5]), np.mean(r["losses"][-5:])
+            msg = (f"19b: {label}: {PRETRAIN_STEPS} steps x {TRAIN_BATCH}x4 "
+                   f"rotations on {GEN_N} category images in "
+                   f"{r['wall_s']:.2f} s; loss mean of steps 1-5 {head:.4f}"
+                   f" -> last 5 {tail:.4f}, rotation accuracy "
+                   f"{np.mean(r['accs'][:5]):.3f} -> "
+                   f"{np.mean(r['accs'][-5:]):.3f} [{smi}]")
+            print(msg, flush=True)
+            assert tail < head, msg
+            rec[f"19b_{label}"] = dict(loss_head=head, loss_tail=tail,
+                                       wall_s=r["wall_s"],
+                                       losses=r["losses"])
+        assert weights_digest() == before, "weights/ changed"
+        print("19b: weights/ byte-identical (sha256 of "
+              f"{len(before)} files)", flush=True)
+
+        cfg = Config(image_size=IMAGE_SIZE, img_size=IMAGE_SIZE,
+                     batch_size=TRAIN_BATCH, subdivide=SUBDIVIDE)
+        rng = np.random.RandomState(0)
+        seg = rng.randint(0, 5, size=(128, 256)).astype(np.float32)
+        idx = rng.permutation(template.num_verts)
+        part_loss = PartMatchingLoss.build(
+            seg, template.uv_sampler, template.num_sym_faces,
+            SoftRenderer(image_size=IMAGE_SIZE, ambient_intensity=1.0,
+                         directional_intensity=0.0), device=dev)
+        model, _, lpips, init_fn, _ = build_s2_step(
+            cfg, template, part_loss,
+            [idx[a:b] for a, b in profile_step.PART_SLICES], dev)
+        os.environ["UMR_TPU_RESNET_WEIGHTS"] = trunk["out"]
+        os.environ["UMR_TPU_LPIPS_WEIGHTS"] = lp["out"]
+        try:
+            state = init_fn(0)
+        finally:
+            os.environ.pop("UMR_TPU_RESNET_WEIGHTS")
+            os.environ.pop("UMR_TPU_LPIPS_WEIGHTS")
+        sd = model.state_dict()
+        want = load_resnet18_npz(trunk["out"], trunk["stats"])
+        assert all(torch.equal(sd[k].cpu(), v) for k, v in want.items())
+        alex = load_npz(lp["out"])
+        assert all(np.array_equal(
+            c.weight.detach().cpu().numpy().transpose(2, 3, 1, 0),
+            alex[f"conv{i}"]["kernel"]) for i, c in enumerate(lpips.convs))
+        print(f"19b: build_s2_step's init_fn under UMR_TPU_RESNET_WEIGHTS "
+              f"and UMR_TPU_LPIPS_WEIGHTS: trunk_pretrained "
+              f"{state.trunk_pretrained}, {len(want)} trunk tensors and "
+              f"{len(alex)} LPIPS convs equal to the written files",
+              flush=True)
+        assert state.trunk_pretrained is True
+        del model, lpips, init_fn, state, sd
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    fv = meshes[:, torch.as_tensor(template.faces, device=dev).long()]
+    ms, occ = cuda_time(lambda: voxelize(fv, VOXEL_R), 3)
+    t0 = time.perf_counter()
+    ref = voxelize(fv.cpu(), VOXEL_R)
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    diff = int((occ.cpu() != ref).sum())
+    vol = ref.sum(dim=(1, 2, 3)).tolist()
+    msg = (f"19c: voxelize R={VOXEL_R} on {fv.shape[0]} s2 meshes (F="
+           f"{fv.shape[1]}) on the card {ms:.3f} ms, on the CPU "
+           f"{cpu_ms:.1f} ms; {diff} voxels differ; occupied "
+           f"{min(vol)}..{max(vol)} of {VOXEL_R ** 3} [{smi}]")
+    print(msg, flush=True)
+    assert diff == 0 and min(vol) > 0, msg
+    rec["19c"] = dict(ms=ms, cpu_ms=cpu_ms, differ=diff, occupied=vol)
+    rec["phase_s"] = time.perf_counter() - t_phase
+    print(f"phase 19: {rec['phase_s']:.1f} s [{smi}]", flush=True)
+    return rec
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device visible")
@@ -3101,6 +3289,12 @@ def main():
                  "soak_launches": {k: tp_rec[f"18d_{k}"]["launches"]
                                    for k in ("s2", "s1")}}
 
+    phase("19. the off-path tools: profile_step at full width (batch 16, "
+          "K=8, AA, F=1280, T2=36), pretrain_trunk and pretrain_lpips on the "
+          "category's images, voxelize at R=32 on the card")
+    off_rec = off_path(dev, smi, template)
+    prof_launch = off_rec["19a"]["launches"]
+
     record = {"kernels": [{
         "name": "raster_fwd", "route": "cuda", "source": KERNEL_SRC,
         "replaces": TPU_KERNEL, "launches": train_fwd,
@@ -3152,6 +3346,8 @@ def main():
         "data_parallel": dp_rec,
         "tensor_parallel": tp_rec,
         **tp_launch,
+        "profile_step_launches": prof_launch[0],
+        "off_path": off_rec,
         "ptxas": {k: v for k, v in usage.items()
                   if k.startswith("raster_fwd")},
     }, {
@@ -3194,6 +3390,7 @@ def main():
         "variant_slices": {k: v["bwd"] for k, v in
                            variants_rec["slices"].items()},
         **tp_launch,
+        "profile_step_launches": prof_launch[2],
         "ptxas": {k: v for k, v in usage.items()
                   if k.startswith("raster_bwd")},
     }]}

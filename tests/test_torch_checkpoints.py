@@ -3,9 +3,10 @@
 trainer's auto-resume, its one-step-lagged scalar drain, loss_log.txt
 (visualizer.py) and stage_budget.json.
 
-  * A port pred_net_*.pth, imported by the JAX package's
+  * A port pred_net_*.pth (with the trunk's provenance under
+    _meta/trunk_pretrained), imported by the JAX package's
     reference_io.import_reference_checkpoint, gives the JAX model the
-    port's eval forward; a JAX save_pth file gives the port the JAX
+    port's eval forward, and loads back into the port; a JAX save_pth file gives the port the JAX
     model's eval forward (BatchNorm statistics and mean_v included). The
     weights are seeded with randomised BatchNorm statistics and template,
     so eval mode exercises them. Tolerance: atol 1e-4, as
@@ -111,9 +112,17 @@ def test_port_pth_imports_into_jax(tmp_path, stage):
     template = build_template(2, 1, 2)
     model = _seeded(stage, template, seed=1)
     path = str(tmp_path / "pred_net_latest.pth")
-    checkpoints.save_pth(path, model)
+    checkpoints.save_pth(path, model, meta={"trunk_pretrained": stage == 2})
     sd = {k: v.numpy() for k, v in torch.load(path).items()}
     assert any(k.endswith("running_var") for k in sd) and "mean_v" in sd
+    # the trunk's provenance rides beside the weights, as the JAX
+    # package's save_pth writes it, and the port's loader drops it
+    assert sd["_meta/trunk_pretrained"].dtype == np.bool_
+    assert bool(sd["_meta/trunk_pretrained"]) is (stage == 2)
+    back = _seeded(stage, template, seed=5)
+    load_checkpoint(back, path)
+    assert all(torch.equal(v, model.state_dict()[k])
+               for k, v in back.state_dict().items())
     # the variables' structure, from another seed: the import fills it
     structure = flax_variables(_seeded(stage, template, seed=2), template,
                                2 if stage == 2 else 0, stage=stage)

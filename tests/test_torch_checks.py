@@ -10,9 +10,10 @@ __graft_entry__.py::dryrun_multichip).
     0 apart; tests/test_kernel_interpret.py holds the JAX package's Pallas
     kernel to the same identity).
   * soak_train at 32^2, batch 4, one rotating batch, a few steps of each
-    stage, with the tool's full-width Config cut to subdivide 2, K=2,
+    stage, with the tool's full-width Config cut to subdivide 1 (80
+    faces: the renders' plain versions take most of a step here), K=2,
     tex_size 2, no anti-aliasing and narrow heads (the s2 part vertex
-    sets cut to dryrun_multichip's slices of 162 vertices): the
+    sets cut to slices of the template's 42 vertices): the
     summary's keys, finite trends consistent with its flags, stage 1's
     template update at its cadence; and the tool's assertions on good
     and bad summaries (the trends themselves are held at full width on
@@ -57,13 +58,13 @@ def test_check_fused_grads_plain_versions(monkeypatch, capsys):
 @pytest.mark.parametrize("stage,steps", [("s2", 3), ("s1", 5)])
 def test_soak_train_small(monkeypatch, stage, steps):
     def narrow(**kw):
-        return Config(**dict(kw, subdivide=2, num_hypo_cams=2,
+        return Config(**dict(kw, subdivide=1, num_hypo_cams=2,
                              anti_aliasing=False, tex_size=2, nz_feat=32,
                              z_dim=24))
 
     monkeypatch.setattr(soak_train, "Config", narrow)
     monkeypatch.setattr(soak_train, "PART_SLICES",
-                        ((0, 20), (20, 60), (60, 80), (80, 120)))
+                        ((0, 8), (8, 20), (20, 28), (28, 40)))
     s = soak_train.soak(["--stage", stage, "--steps", str(steps),
                          "--batch", "4", "--image_size", "32",
                          "--n_batches", "1", "--template_update_every", "4",

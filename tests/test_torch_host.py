@@ -1,7 +1,9 @@
 """The port's copies of the JAX package's host-side numpy code are pinned
 equal to their originals: Config, the mesh template, synthetic batches,
-the .obj export and the image crop and resize the demo and the CUB
-loader share (image.py). The CLI parses the
+the .obj export and reader, the image crop and resize the demo and the
+CUB loader share (image.py), and the utilities no path calls: geometry,
+the dense CRF, flow_to_rgb, compute_dt, compute_dt_barrier,
+compute_edges2verts and symmetrize_np. The CLI parses the
 JAX package's flag names.
 
 Tolerances: exactly equal, except the resize (torch bilinear
@@ -158,3 +160,89 @@ def test_demo_resize_and_crop_match_jax(rng, shape, scale):
     for bbox in ([-5, -3, 20, 40], [3, 2, 10, 12]):
         np.testing.assert_array_equal(image.crop(img, bbox, 1.0),
                                       jimage.crop(img, bbox, bgval=1.0))
+
+
+def test_geometry_matches_jax(rng):
+    from umr_tpu.utils import geometry as jgeo
+    from umr_tpu_torch import geometry
+
+    verts = rng.uniform(-1, 1, (9, 3))
+    faces = rng.randint(0, 9, (12, 3))
+    pts = rng.uniform(-1, 1, (7, 3))
+    for direction in ((0.0, 0.0, 1.0), (0.3, -0.2, 0.9)):
+        np.testing.assert_array_equal(
+            geometry.project_points_on_mesh(pts, verts, faces, direction),
+            jgeo.project_points_on_mesh(pts, verts, faces, direction))
+    tri = verts[faces[0]]
+    for o in pts:
+        assert (geometry.ray_triangle_intersect(o, np.array([0, 0, 1.0]),
+                                                *tri)
+                == jgeo.ray_triangle_intersect(o, np.array([0, 0, 1.0]),
+                                               *tri))
+
+
+@pytest.mark.parametrize("kw", [{}, dict(n_iters=2, sxy=1.5, compat=3.0)])
+def test_crf_matches_jax(rng, kw):
+    from umr_tpu.utils.crf import denseCRF as jcrf
+    from umr_tpu_torch.crf import denseCRF
+
+    pred = rng.dirichlet(np.ones(4), size=(11, 13)).transpose(2, 0, 1)
+    out = denseCRF(None, pred, **kw)
+    assert out.dtype == np.float32
+    np.testing.assert_array_equal(out, jcrf(None, pred, **kw))
+
+
+def test_flow_and_distance_transforms_match_jax(rng):
+    flow = rng.normal(0, 3, (9, 11, 2))
+    flow[0, 0] = np.nan
+    flow[1, 1] = 1e8
+    for max_rad in (None, 2.5):
+        got, r = image.flow_to_rgb(flow, max_rad)
+        want, jr = jimage.flow_to_rgb(flow, max_rad)
+        assert got.dtype == want.dtype and r == jr
+        np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(image._middlebury_wheel(),
+                                  jimage._middlebury_wheel())
+    mask = np.zeros((20, 14), np.float32)
+    mask[4:15, 3:10] = 1
+    np.testing.assert_array_equal(image.compute_dt(mask),
+                                  jimage.compute_dt(mask))
+    for k in (50, 10):
+        np.testing.assert_array_equal(image.compute_dt_barrier(mask, k),
+                                      jimage.compute_dt_barrier(mask, k))
+
+
+def test_mesh_helpers_match_jax(rng):
+    from umr_tpu.mesh.symmetry import symmetrize_np as jsym
+    from umr_tpu.mesh.template import compute_edges2verts as je2v
+    from umr_tpu_torch.mesh import compute_edges2verts, symmetrize_np
+
+    t = build_template(2, 1, 2)
+    got, want = (f(t.verts, t.faces) for f in (compute_edges2verts, je2v))
+    assert got.dtype == want.dtype
+    np.testing.assert_array_equal(got, want)
+    half = rng.normal(size=(10, 3)).astype(np.float32)
+    for axis in (0, 1):
+        np.testing.assert_array_equal(symmetrize_np(half, 4, axis),
+                                      jsym(half, 4, axis))
+
+
+def test_load_obj_matches_jax(rng, tmp_path):
+    from umr_tpu.utils.obj_io import load_obj as jload
+    from umr_tpu_torch.obj_io import load_obj
+
+    verts = rng.standard_normal((7, 3)).astype(np.float32)
+    faces = rng.randint(0, 7, (5, 3))
+    save_obj(str(tmp_path / "m.obj"), verts, faces,
+             rng.uniform(0, 1, (5, 9, 3)).astype(np.float32))
+    for norm in (False, True):
+        got = load_obj(str(tmp_path / "m.obj"), normalization=norm)
+        want = jload(str(tmp_path / "m.obj"), normalization=norm)
+        for a, b in zip(got, want):
+            assert a.dtype == b.dtype
+            np.testing.assert_array_equal(a, b)
+    # save_obj writes 6 decimals
+    np.testing.assert_allclose(load_obj(str(tmp_path / "m.obj"))[0], verts,
+                               rtol=0, atol=5e-7)
+    np.testing.assert_array_equal(load_obj(str(tmp_path / "m.obj"))[1],
+                                  faces)

@@ -4,8 +4,10 @@ files: avg_uv, test_kp, the synthetic category with its loader and
 curriculum tools, and the CUB data path: train_s1 and test_iou
 --visualize from a --cub_dir with no loader passed, the native EDT, the
 JPEG reader's module; train_s1 from the --cub_dir on two ranks spawned
-by parallel.spawn, which report what they imported; dryrun_multichip's
-tensor-parallel step on two CPU ranks) runs with jax,
+by parallel.spawn, one torch thread each, which report what they
+imported; dryrun_multichip's tensor-parallel step on two CPU ranks; the
+off-path tools and utilities imported: profile_step, the RotNet
+pretraining, the voxelizer, geometry and the CRF) runs with jax,
 flax, optax, orbax, absl, imageio, cv2, PIL and the JAX package umr_tpu
 unavailable, and no file of it (nor chip_smoke.py, nor the rank side
 it spawns, tests/torch_ranks.py) imports them: the machine with the
@@ -147,6 +149,8 @@ assert trainer.state.step == 1
 with open(os.path.join(tmp, "ranks_probe.py"), "w") as f:
     f.write("import sys\n"
             "def train(cfg):\n"
+            "    import torch\n"
+            "    torch.set_num_threads(1)   # the ranks share the cores\n"
             "    from umr_tpu_torch.experiments import train_s1\n"
             "    trainer = train_s1.run(cfg, device='cpu')\n"
             "    return trainer.state.step, sorted(\n"
@@ -169,6 +173,13 @@ cfg = Config(image_size=32, subdivide=2, tex_size=2, num_hypo_cams=2,
              results_vis_dir=os.path.join(tmp, "rvis")).sync_image_size()
 assert 0.0 <= test_iou.run(cfg, device="cpu") <= 1.0
 assert os.path.exists(os.path.join(tmp, "rvis", "vis_iter_0", "mesh_0.obj"))
+# the off-path tools and utilities: imported, not run (their runs are
+# tests/test_torch_pretrain.py's, test_torch_profile_step.py's and
+# test_torch_utils.py's)
+from umr_tpu_torch import crf, geometry
+from umr_tpu_torch.experiments import (pretrain_lpips, pretrain_trunk,
+                                       profile_step, rotnet)
+from umr_tpu_torch.ops import voxelize
 loaded = [k for k, v in sys.modules.items()
           if v is not None and k.split(".")[0] in %(blocked)r]
 assert not loaded, loaded
@@ -206,7 +217,11 @@ def test_no_file_of_the_port_imports_jax():
               "training/visuals.py", "parallel/tensor.py",
               "experiments/dryrun_multichip.py",
               "experiments/soak_train.py",
-              "experiments/check_fused_grads.py"):
+              "experiments/check_fused_grads.py",
+              "experiments/profile_step.py", "experiments/rotnet.py",
+              "experiments/pretrain_trunk.py",
+              "experiments/pretrain_lpips.py", "ops/voxelize.py",
+              "geometry.py", "crf.py"):
         assert ROOT / "umr_tpu_torch" / f in files, f
     offenders = [str(f.relative_to(ROOT)) for f in files
                  if pat.search(f.read_text())]

@@ -39,8 +39,10 @@ heads).
 """
 
 import itertools
+import multiprocessing
 import threading
 import types
+from concurrent.futures import ProcessPoolExecutor
 
 import numpy as np
 import pytest
@@ -191,9 +193,13 @@ def tp(tmp_path_factory):
     accumulated over optim_bs=2 in one process and on 2 ranks as a (1, 2)
     mesh, and, once step_parity has made its inputs, the port's
     one-process Adam step, then its step on 4 ranks as a 2 x 2 mesh, from
-    the same weights, batch and draws, with SGD at LR and with Adam."""
+    the same weights, batch and draws, with SGD at LR and with Adam. The
+    one-process references run in spawned processes of their own (no
+    group), so that this process's interpreter is left to JAX's step."""
     seg, pvi = part_semantic(build_template(2, 1, 2))
     tmp, box = tmp_path_factory.mktemp("tp"), {}
+    pool = ProcessPoolExecutor(2, mp_context=multiprocessing.get_context(
+        "spawn"))
 
     def thread(fn):
         def run():
@@ -208,23 +214,28 @@ def tp(tmp_path_factory):
 
     def steps():
         spec = _steps_spec(seg, pvi)
-        box["one_steps"] = rank_tp(None, [spec])["specs"][0]
+        one = pool.submit(rank_tp, None, [spec])
         box["steps"] = _spawn(tmp, rank_tp, 2, (1, 2), [spec])
+        box["one_steps"] = one.result()["specs"][0]
 
     def on_ranks(inputs):
         box["specs"] = _specs(inputs, seg, pvi)
 
         def ranks():
-            box["one"] = rank_tp(None, box["specs"][1:])["specs"][0]
+            one = pool.submit(rank_tp, None, box["specs"][1:])
             box["ranks"] = _spawn(tmp, rank_tp, 4, (2, 2), box["specs"],
                                   True)
+            box["one"] = one.result()["specs"][0]
 
         threads.append(thread(ranks))
 
     threads = [thread(steps)]
-    r = step_parity(2, KW, JAX_KW, LR, mesh=(2, 2), on_inputs=on_ranks)
-    for t in threads:
-        t.join()
+    try:
+        r = step_parity(2, KW, JAX_KW, LR, mesh=(2, 2), on_inputs=on_ranks)
+    finally:
+        for t in threads:
+            t.join()
+        pool.shutdown()
     if "errors" in box:
         raise box["errors"][0]
     return (r, box["ranks"], box["one"], box["specs"],

@@ -28,7 +28,7 @@ from ..data.cub import data_loader
 from ..image import color_map, colorize
 from ..mesh import build_template
 from ..models import LPIPSAlex, MeshNetS1, symmetrize
-from ..models.weights import WEIGHTS_DIR, load_checkpoint, load_lpips_npz
+from ..models.weights import load_checkpoint, maybe_load_lpips
 from ..obj_io import save_obj
 from ..ops.grid_sample import grid_sample
 from ..png import write_png
@@ -249,11 +249,7 @@ def run(cfg: Config, dataloader=None, device=None):
     template = build_template(cfg.subdivide, cfg.axis, cfg.tex_size)
     model = load_s1_model(cfg, template, device)
     lpips = LPIPSAlex()
-    lp = osp.join(WEIGHTS_DIR, "lpips_alex.npz")
-    if osp.exists(lp):
-        load_lpips_npz(lpips, lp)
-    else:
-        warnings.warn(f"{lp} not found: LPIPS runs on a random AlexNet")
+    maybe_load_lpips(lpips)
     lpips = lpips.to(device).eval()
     renderer = SoftRenderer(image_size=cfg.image_size, render_type="softmax",
                             anti_aliasing=cfg.anti_aliasing)

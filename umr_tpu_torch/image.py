@@ -1,7 +1,10 @@
 """Host image utilities (copies of umr_tpu/utils/image.py): the CUB
 crop chain (resize_img, peturb_bbox, square_bbox, crop), label-image
 colouring, part-point sampling and the drawing helpers of the visuals
-(KP_COLOR_TABLE, draw_kp_circles).
+(KP_COLOR_TABLE, draw_kp_circles); the utilities no path calls: the
+scipy distance transforms compute_dt and compute_dt_barrier (the data
+paths' barrier is native.edt_barrier, which has no fallback to them) and
+the Middlebury flow colouring flow_to_rgb.
 tests/test_torch_host.py, tests/test_torch_cub.py and
 tests/test_torch_synthetic_category.py pin them equal.
 
@@ -179,3 +182,70 @@ def draw_kp_circles(img, kps_px, visible=None, radius=5, colors=None):
                  x0 - (cx - radius):x1 - (cx - radius)]
         out[y0:y1, x0:x1][d] = colors[i % len(colors)]
     return out
+
+
+def compute_dt(mask):
+    """Normalized EDT of the background (ref: utils/image.py:122-128)."""
+    from scipy.ndimage import distance_transform_edt
+
+    return distance_transform_edt(1 - mask) / max(mask.shape)
+
+
+def compute_dt_barrier(mask, k=50):
+    """Sigmoid-of-signed-EDT barrier map (ref: utils/image.py:130-141)."""
+    from scipy.ndimage import distance_transform_edt
+
+    dist_out = distance_transform_edt(1 - mask)
+    dist_in = distance_transform_edt(mask)
+    dist_diff = (dist_out - dist_in) / max(mask.shape)
+    return 1.0 / (1.0 + np.exp(k * -dist_diff))
+
+
+def _middlebury_wheel():
+    """55-entry Middlebury flow color wheel (segment sizes RY=15, YG=6,
+    GC=4, CB=11, BM=13, MR=6 — the standard code the reference vendors,
+    ref: utils/image.py:378-425)."""
+    segs = [(15, 0, 1), (6, 1, 0), (4, 1, 2), (11, 2, 1), (13, 2, 0),
+            (6, 0, 2)]
+    rows = []
+    for i, (n, hold, ramp) in enumerate(segs):
+        w = np.zeros((n, 3))
+        w[:, hold] = 255
+        r = np.floor(255 * np.arange(n) / n)
+        # even segments ramp the moving channel up, odd segments down
+        w[:, ramp] = r if i % 2 == 0 else 255 - r
+        rows.append(w)
+    return np.concatenate(rows)
+
+
+def flow_to_rgb(flow, max_rad=None):
+    """Flow [H,W,2] -> (rgb float32 [H,W,3] in [0,1], max radius), in
+    Middlebury color code (vectorized port of the reference's
+    flow_to_rgb/compute_color, ref: utils/image.py:290-376)."""
+    u = np.array(flow[:, :, 0], float, copy=True)
+    v = np.array(flow[:, :, 1], float, copy=True)
+    unknown = (np.abs(u) > 1e7) | (np.abs(v) > 1e7) | np.isnan(u) \
+        | np.isnan(v)
+    u[unknown] = 0
+    v[unknown] = 0
+
+    rad = np.sqrt(u ** 2 + v ** 2)
+    maxrad = max(-1.0, rad.max()) if max_rad is None else max_rad
+    u = u / (maxrad + np.finfo(float).eps)
+    v = v / (maxrad + np.finfo(float).eps)
+    rad = np.sqrt(u ** 2 + v ** 2)
+
+    wheel = _middlebury_wheel()
+    ncols = wheel.shape[0]
+    a = np.arctan2(-v, -u) / np.pi               # [-1, 1]
+    fk = (a + 1) / 2 * (ncols - 1) + 1
+    k0 = np.floor(fk).astype(int)
+    k1 = np.where(k0 + 1 == ncols + 1, 1, k0 + 1)
+    f = (fk - k0)[..., None]
+    col = (1 - f) * wheel[k0 - 1] / 255 + f * wheel[k1 - 1] / 255
+
+    inside = (rad <= 1)[..., None]
+    col = np.where(inside, 1 - rad[..., None] * (1 - col), col * 0.75)
+    img = np.floor(255 * col)
+    img[unknown] = 0
+    return (img / 255.0).astype(np.float32), float(maxrad)

@@ -4,7 +4,8 @@ umr_tpu/mesh/, so that the port never imports the JAX package;
 tests/test_torch_host.py pins build_template equal to the JAX package's).
 
 With the training members: the graph Laplacian and the flatten loss's
-edge indices.
+edge indices; and two helpers no path calls, compute_edges2verts
+(umr_tpu/mesh/template.py) and symmetrize_np (umr_tpu/mesh/symmetry.py).
 """
 
 from __future__ import annotations
@@ -233,6 +234,23 @@ class MeshTemplate:
         return img_H, 2 * img_H
 
 
+def compute_edges2verts(verts, faces):
+    """[E, 4] = (edge v0, edge v1, opposite verts of the 2 adjacent faces).
+
+    Ref: utils/mesh.py:198-213 (full-edge variant, not on the main path).
+    """
+    edge_dict = {}
+    for face in np.asarray(faces, dtype=np.int64):
+        for e1, e2, o in [(0, 1, 2), (0, 2, 1), (1, 2, 0)]:
+            edge = (min(face[e1], face[e2]), max(face[e1], face[e2]))
+            lst = edge_dict.setdefault(edge, [])
+            if face[o] not in lst:
+                lst.append(face[o])
+    return np.stack(
+        [np.hstack((e, o)) for e, o in edge_dict.items()]
+    )
+
+
 def build_template(subdivide=3, axis=1, tex_size=6):
     """The symmetric icosphere template with its UV sampler."""
     verts, faces = create_sphere(subdivide)
@@ -249,3 +267,10 @@ def build_template(subdivide=3, axis=1, tex_size=6):
         laplacian=compute_laplacian(verts.shape[0], faces),
         flatten_idx=compute_flatten_indices(faces), axis=axis,
         tex_size=tex_size)
+
+
+def symmetrize_np(V_half, num_sym, axis=0):
+    """[num_indept+num_sym, 3] -> full [_, 3] by mirroring the last num_sym."""
+    flip = np.ones((1, 3))
+    flip[0, axis] = -1
+    return np.concatenate([V_half, flip * V_half[-num_sym:]], axis=0)

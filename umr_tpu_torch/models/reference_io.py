@@ -224,3 +224,14 @@ def to_torch_layout(arr, transform):
     if transform == T_CONV:
         return np.transpose(arr, (3, 2, 0, 1))
     return arr
+
+
+def to_flax_layout(arr, transform):
+    """A torch tensor's array -> the flax leaf layout of its key (the
+    inverse of to_torch_layout)."""
+    arr = np.asarray(arr)
+    if transform == T_LINEAR:
+        return np.transpose(arr, (1, 0))
+    if transform == T_CONV:
+        return np.transpose(arr, (2, 3, 1, 0))
+    return arr

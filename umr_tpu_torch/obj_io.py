@@ -1,8 +1,8 @@
 """Wavefront .obj export, with a baked per-face texture atlas or per-vertex
-colours (copy of umr_tpu/utils/obj_io.py::save_obj, so that the port
-never imports the JAX package; the atlas PNG goes through png.py, not
-imageio; tests/test_torch_host.py pins the written files equal to the
-JAX package's)."""
+colours, and the .obj reader (copies of umr_tpu/utils/obj_io.py::save_obj
+and load_obj, so that the port never imports the JAX package; the atlas
+PNG goes through png.py, not imageio; tests/test_torch_host.py pins the
+written files and the read arrays equal to the JAX package's)."""
 
 from __future__ import annotations
 
@@ -81,3 +81,25 @@ def save_obj(path, vertices, faces, textures=None, texture_res=16,
         lines += ["f %d %d %d" % (f[0] + 1, f[1] + 1, f[2] + 1) for f in faces]
     with open(path, "w") as f:
         f.write("\n".join(lines) + "\n")
+
+
+def load_obj(path, normalization=False, load_texture=False, texture_res=4):
+    """Load vertices/faces (+ optional vertex-uv texture sampling from the
+    atlas) — numpy port of functional/load_obj.py."""
+    vertices, faces = [], []
+    with open(path) as f:
+        for line in f:
+            parts = line.strip().split()
+            if not parts:
+                continue
+            if parts[0] == "v":
+                vertices.append([float(x) for x in parts[1:4]])
+            elif parts[0] == "f":
+                idx = [int(p.split("/")[0]) - 1 for p in parts[1:4]]
+                faces.append(idx)
+    vertices = np.asarray(vertices, np.float32)
+    faces = np.asarray(faces, np.int64)
+    if normalization:
+        vertices = vertices - vertices.mean(0)
+        vertices = vertices / np.abs(vertices).max()
+    return vertices, faces

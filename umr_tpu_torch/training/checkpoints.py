@@ -3,15 +3,17 @@
 save_pth writes pred_net_{label}.pth as the model's own state_dict: the
 reference's torch keys (models/reference_io.py's map), with mean_v and
 the BatchNorm running statistics, which eval needs (a .pth without them
-evals with init statistics). models/weights.py::load_checkpoint reads
-it back, and the JAX package's reference_io.import_reference_checkpoint
+evals with init statistics), and the trunk's provenance as
+_meta/trunk_pretrained. models/weights.py::load_checkpoint reads it
+back, and the JAX package's reference_io.import_reference_checkpoint
 reads it too.
 
 save_state / restore_state replace Orbax: {save_dir}/pred_state.pt holds
 the model's, the discriminator's and the optimizer's state_dicts, the
-step and update counts and the step generator's state, so that a resumed
-run continues where the saved one stopped (the learning rate follows
-the update count; stage 1's template lives in the model's mean_v).
+step and update counts, the step generator's state and trunk_pretrained,
+so that a resumed run continues where the saved one stopped (the
+learning rate follows the update count; stage 1's template lives in the
+model's mean_v).
 
 In a group of ranks (parallel/mesh.py) rank 0 writes and every rank
 waits for the file at a barrier; every rank restores the same file onto
@@ -39,11 +41,18 @@ def _atomic_save(make_obj, path):
     barrier()
 
 
-def save_pth(path, model):
+def save_pth(path, model, meta=None):
     """The model's state_dict (parameters, BatchNorm statistics, mean_v),
-    on the CPU."""
-    _atomic_save(lambda: {k: v.detach().cpu()
-                          for k, v in model.state_dict().items()}, path)
+    on the CPU, and each provenance scalar of `meta` that is not None
+    (trunk_pretrained) under '_meta/<key>', as the JAX package's save_pth
+    writes it; readers drop those keys."""
+    def make():
+        sd = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+        sd.update({f"_meta/{k}": torch.tensor(v)
+                   for k, v in (meta or {}).items() if v is not None})
+        return sd
+
+    _atomic_save(make, path)
 
 
 def state_path(save_dir, label="pred"):
@@ -61,6 +70,7 @@ def save_state(save_dir, state, label="pred"):
         "step": int(state.step),
         "updates": int(state.updates),
         "generator": state.generator.get_state(),
+        "trunk_pretrained": state.trunk_pretrained,
     }, path)
     return path
 
@@ -101,4 +111,6 @@ def restore_state(save_dir, state, label="pred"):
     state.generator.set_state(ckpt["generator"])
     state.step = ckpt["step"]
     state.updates = ckpt["updates"]
+    state.trunk_pretrained = ckpt.get("trunk_pretrained",
+                                      state.trunk_pretrained)
     return state

@@ -91,8 +91,6 @@ from __future__ import annotations
 
 import dataclasses
 import math
-import os
-import warnings
 from typing import Optional
 
 import torch
@@ -107,7 +105,7 @@ from ..losses.losses import (cam_diversity_loss, deform_l2reg, flatten_loss,
                              tex_cycle_loss, texture_dt_loss)
 from ..models import (Discriminator, LPIPSAlex, MeshNet, MeshNetS1,
                       init_weights, symmetrize)
-from ..models.weights import WEIGHTS_DIR, load_lpips_npz, load_resnet18_npz
+from ..models.weights import maybe_load_lpips, overlay_resnet18
 from ..ops.grid_sample import sample_textures
 from ..ops.quaternion import rotate_cam
 from ..parallel import all_reduce_, rank_block, shard_batch, world_size
@@ -130,6 +128,10 @@ class TrainState:
     generator: torch.Generator       # the step's random draws
     shards: Optional[object] = None  # parallel/tensor.py::Shards, under
                                      # tensor parallelism (shard_state)
+    # provenance: was the encoder trunk overlaid with pretrained weights?
+    # (pred_state.pt keeps it; every .pth carries it as
+    # _meta/trunk_pretrained)
+    trunk_pretrained: Optional[bool] = None
 
 
 def learning_rate(cfg: Config, updates):
@@ -199,36 +201,24 @@ def _init_disc(disc, generator):
 
 
 def _make_init_fn(cfg: Config, model, disc, lpips, device):
-    """init_fn(seed=cfg.seed, weights_dir) -> TrainState: seeded weights,
-    the ResNet-18 trunk and LPIPS from weights_dir where present."""
+    """init_fn(seed=cfg.seed) -> TrainState: seeded weights, the
+    pretrained ResNet-18 trunk and LPIPS where their files are
+    (models/weights.py: the committed ones, or UMR_TPU_RESNET_WEIGHTS and
+    UMR_TPU_LPIPS_WEIGHTS), the trunk's provenance in trunk_pretrained."""
 
-    def init_fn(seed=None, weights_dir=WEIGHTS_DIR):
+    def init_fn(seed=None):
         seed = cfg.seed if seed is None else seed
         g = torch.Generator().manual_seed(seed)
         init_weights(model, g)
         _init_disc(disc, g)
-        trunk = os.path.join(weights_dir, "resnet18_params.npz")
-        if os.path.exists(trunk):
-            sd = load_resnet18_npz(trunk, os.path.join(
-                weights_dir, "resnet18_stats.npz"))
-            res = model.load_state_dict(sd, strict=False)
-            assert not res.unexpected_keys, res.unexpected_keys
-            print(f"encoder trunk: {len(sd)} tensors from {trunk} "
-                  f"({min(sd)} .. {max(sd)})")
-        else:
-            warnings.warn(f"{trunk} not found: the encoder trunk is "
-                          "random-init (the reference's is ImageNet-"
-                          "pretrained)")
-        lp = os.path.join(weights_dir, "lpips_alex.npz")
-        if os.path.exists(lp):
-            load_lpips_npz(lpips, lp)
-        else:
-            warnings.warn(f"{lp} not found: LPIPS runs on a random AlexNet")
+        trunk_pretrained = overlay_resnet18(model)
+        maybe_load_lpips(lpips)
         opt = make_optimizer(cfg, list(model.parameters())
                              + list(disc.parameters()))
         gen = torch.Generator(device).manual_seed(seed)
         return TrainState(step=0, updates=0, model=model, disc=disc,
-                          lpips=lpips, optimizer=opt, generator=gen)
+                          lpips=lpips, optimizer=opt, generator=gen,
+                          trunk_pretrained=trunk_pretrained)
 
     return init_fn
 
@@ -298,8 +288,8 @@ def build_s2_step(cfg: Config, template, part_loss: PartMatchingLoss,
     back) of the semantic template. impl: the renderers' route ("kernel"
     drives the card's route on the CPU; see renderer/soft_renderer.py).
 
-    init_fn(seed=cfg.seed, weights_dir) -> TrainState: seeded weights,
-    the ResNet-18 trunk and LPIPS from weights_dir where present.
+    init_fn(seed=cfg.seed) -> TrainState: seeded weights, the ResNet-18
+    trunk and LPIPS from their files where present (_make_init_fn).
     step_fn(state, batch, draws=None) -> (state, scalars): batch is the
     trainer's prepare_batch dict (numpy or tensors; in a group of ranks
     this rank's block); draws optionally injects 'eps' [B,z_dim],
@@ -498,7 +488,7 @@ def build_s1_step(cfg: Config, template, device=None, impl="auto"):
     template_update_fn) on `device` (the card unless "cpu" is asked for);
     impl as build_s2_step's.
 
-    init_fn(seed=cfg.seed, weights_dir) -> TrainState, as stage 2's.
+    init_fn(seed=cfg.seed) -> TrainState, as stage 2's.
     step_fn(state, batch, epoch=0.0, draws=None) -> (state, scalars):
     epoch gates the orientation reg (epoch < stop_ori_epoch) and the
     deform reg (epoch > update_template_freq), as the reference does;

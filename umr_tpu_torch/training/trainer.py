@@ -171,7 +171,8 @@ class Trainer:
         if export_pth:
             checkpoints.save_pth(
                 os.path.join(self.save_dir, f"pred_net_{label}.pth"),
-                self.state.model)
+                self.state.model,
+                meta={"trunk_pretrained": self.state.trunk_pretrained})
         self._budget["save"] += time.perf_counter() - t0
         self._dump_budget()
 
