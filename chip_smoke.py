@@ -1179,7 +1179,7 @@ def cub_path(dev, smi, template):
             2 * CUB_S1_STEPS)
     b1 = json.load(open(os.path.join(root, "snap", "cub_s1",
                                      "stage_budget.json")))
-    vis1_ms = 1e3 * s1._budget["vis"] / dumps
+    vis1_ms = 1e3 * s1.budget()["vis"] / dumps
     print(f"train_s1.run from --cub_dir: {s1.state.step} steps of "
           f"{S1_BATCH} in {s1_s:.2f} s with set-up; launches (forward, p2f, "
           f"backward) {got} (expected {want}: 3, 1 with p2f, + 2 per step "
@@ -1220,7 +1220,7 @@ def cub_path(dev, smi, template):
     want = (3 * CUB_S2_STEPS + calls2 * dumps2, 0, 2 * CUB_S2_STEPS)
     b2 = json.load(open(os.path.join(root, "snap", "cub_s2",
                                      "stage_budget.json")))
-    vis2_ms = 1e3 * s2._budget["vis"] / dumps2
+    vis2_ms = 1e3 * s2.budget()["vis"] / dumps2
     print(f"train_s2.run from --cub_dir: {s2.state.step} steps of "
           f"{TRAIN_BATCH} in {s2_s:.2f} s with set-up; launches {got} "
           f"(expected {want}: 3 + 2 per step and {calls2} per visuals "

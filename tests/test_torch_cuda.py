@@ -401,7 +401,9 @@ def test_trainer_copies_batches_pinned_and_drains_one_step_late(cuda,
                                                                  tmp_path):
     """The trainer on the card: each batch reaches the step as CUDA
     tensors, equal to the host batch, and each step's scalars (queued to
-    pinned memory behind the step) come back in order, one step late."""
+    pinned memory behind the step) come back in order, one step late; the
+    bytes copied from the host are counted as trainer.h2d_bytes."""
+    from umr_tpu_torch import tracing
     from umr_tpu_torch.config import Config
     from umr_tpu_torch.training.steps import TrainState
     from umr_tpu_torch.training.trainer import Trainer, prepare_batch
@@ -426,8 +428,12 @@ def test_trainer_copies_batches_pinned_and_drains_one_step_late(cuda,
                  print_scalars=False, use_scops=False)
     t = Trainer(cfg, step_fn, state, loader)
     assert t.device.type == "cuda"
+    before = tracing.totals()
     t.train()
     assert [sc["total_loss"] for sc in t.history] == [1.0, 2.0, 3.0]
+    assert tracing.delta(before)["counters"]["trainer.h2d_bytes"] == sum(
+        v.nbytes for b in loader
+        for v in prepare_batch(b, use_scops=False).values())
     for got, batch in zip(seen, loader):
         want = prepare_batch(batch, use_scops=False)
         np.testing.assert_array_equal(got["img"], want["img"])

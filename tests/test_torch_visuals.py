@@ -157,7 +157,7 @@ def test_trainer_and_test_iou_write_visuals(tmp_path, monkeypatch):
             assert (d / f).exists(), (name, f)
             if f.endswith(".png") and not f.startswith(("mesh", "uv")):
                 assert png.read_png(str(d / f)).shape == (S, 2 * S, 3), f
-    assert trainer._budget["vis"] > 0
+    assert trainer.budget()["vis"] > 0
 
     pth = str(tmp_path / "snap" / "s2" / "pred_net_latest.pth")
     cfg = Config(**small, model_path=pth, visualize=True, sample_num=2,

@@ -88,6 +88,9 @@ Port module -> JAX counterpart (umr_tpu/...):
   experiments/dryrun_multichip.py, soak_train.py, check_fused_grads.py
                              __graft_entry__.py::dryrun_multichip,
                              tools/soak_train.py, tools/check_fused_grads.py
+  tracing.py                 the port's own (no counterpart): spans (a
+                             profiler range, host seconds, records on the
+                             trace's clock) and counters
 
 Parity traps the port reproduces:
   * heads.py: the 1x1 `enc_conv1` for inputs under 64 px; CHW flatten

@@ -9,12 +9,18 @@ keeps at most mf_cap faces and the whole array at most E_al entries
 (entry_cap), the highest tiles losing theirs first. The kernel walks this
 layout, so it renders exactly what the JAX kernel renders even when a tile
 overflows its cap.
+
+compute_raster_bins runs inside the span "raster.bins" (tracing.py): its
+host time, and the device time of what it launches in a trace. The name
+has no step prefix ("s2.", "s1."), so a split of a trace by the step's
+ranges still counts the binning to the render pass around it.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..tracing import span
 from .rasterize import threshold_of
 
 GROUP = 8
@@ -63,6 +69,13 @@ def compute_raster_bins(face_vertices, image_size, tile_size, sigma_val,
                         dist_eps, mf_cap, max_cover, entry_cap=None):
     """face_vertices [B, F, 3, 3] -> (al_fids [B, E_al] int32,
     astarts [B, n_tiles + 1] int32)."""
+    with span("raster.bins"):
+        return _bins(face_vertices, image_size, tile_size, sigma_val,
+                     dist_eps, mf_cap, max_cover, entry_cap)
+
+
+def _bins(face_vertices, image_size, tile_size, sigma_val, dist_eps, mf_cap,
+          max_cover, entry_cap):
     B, F = face_vertices.shape[:2]
     S, ts = int(image_size), int(tile_size)
     n_tiles = (S // ts) ** 2

@@ -78,12 +78,13 @@ own stream; injected draws are global and each rank takes its block. No
 group: none of this runs. Tensor parallelism (parallel/tensor.py) wraps
 the s2 step_fn: ranks and blocks then follow the data coordinate.
 
-The step's layers are torch.profiler ranges ("s2.forward" around the
+The step's layers are spans (tracing.span: a torch.profiler range of the
+same name, and host time in tracing.totals()): "s2.forward" around the
 loss, inside it "s2.model", "s2.pass1_fold", "s2.lpips", "s2.pass2_hard"
 and "s2.pass3_merged"; then "s2.backward" and "s2.optimizer"; stage 1's
 "s1.forward" around "s1.model", "s1.pass1_fused", "s1.lpips",
 "s1.pass2_hard" and "s1.pass3_gan", then "s1.backward" and
-"s1.optimizer"), so a trace of the step splits its device time by layer
+"s1.optimizer". A trace of the step splits its device time by layer
 (chip_smoke.py, experiments/profile_slice.py::range_split).
 """
 
@@ -94,7 +95,6 @@ import math
 from typing import Optional
 
 import torch
-from torch.profiler import record_function
 
 from ..config import Config, check_supported, resolve_device
 from ..losses.composite import (PartMatchingLoss, corr_loss_chamfer,
@@ -110,6 +110,7 @@ from ..ops.grid_sample import sample_textures
 from ..ops.quaternion import rotate_cam
 from ..parallel import all_reduce_, rank_block, shard_batch, world_size
 from ..renderer import SoftRenderer
+from ..tracing import span
 
 # settings that decide a render's bins: renders that agree on them can
 # share one binning
@@ -248,9 +249,9 @@ def _train_step(cfg: Config, state: TrainState, batch, device, prefix,
     k = max(cfg.optim_bs, 1)
     if state.step % k == 0:
         opt.zero_grad(set_to_none=True)
-    with record_function(f"{prefix}.forward"):
+    with span(f"{prefix}.forward"):
         total, sc = loss_fn(batch)
-    with record_function(f"{prefix}.backward"):
+    with span(f"{prefix}.backward"):
         total.backward()
     if state.shards is not None:
         state.shards.take_grads()
@@ -261,7 +262,7 @@ def _train_step(cfg: Config, state: TrainState, batch, device, prefix,
         all_reduce_([values])
         sc = dict(zip(sc, values.unbind()))
     if state.step % k == 0:
-        with record_function(f"{prefix}.optimizer"):
+        with span(f"{prefix}.optimizer"):
             if state.shards is None:
                 all_reduce_([p.grad for group in opt.param_groups
                              for p in group["params"] if p.grad is not None])
@@ -326,7 +327,7 @@ def build_s2_step(cfg: Config, template, part_loss: PartMatchingLoss,
     part_range = "s2.pass3_merged" if default else "s2.pass3_parts"
 
     def loss_fn(state: TrainState, batch, draws):
-        with record_function("s2.model"):
+        with span("s2.model"):
             outputs = model(batch["input_img"], eps=draws.get("eps"),
                             sample_inds=draws.get("sample_inds"),
                             generator=state.generator)
@@ -345,7 +346,7 @@ def build_s2_step(cfg: Config, template, part_loss: PartMatchingLoss,
         # face)
         main_bins = None
         if hard_renderer.uses_kernel(device):
-            with record_function("s2.pass2_hard" if cfg.use_texture
+            with span("s2.pass2_hard" if cfg.use_texture
                                  else part_range):
                 main_bins = hard_renderer.compute_bins(pred_vs, faces,
                                                        proj_cam)
@@ -358,7 +359,7 @@ def build_s2_step(cfg: Config, template, part_loss: PartMatchingLoss,
             tex = tex.reshape(B, tex.shape[1], T * T, 3)
         # pass 1: silhouettes (live geometry) + textures (texels only);
         # without texture the silhouettes alone, mask only
-        with record_function("s2.pass1_fold"):
+        with span("s2.pass1_fold"):
             if cfg.use_texture:
                 mask_all_hypo, texture_pred = multi_mask_texture_render(
                     renderer, tex_renderer, pred_vs, faces, cams_all, tex,
@@ -385,7 +386,7 @@ def build_s2_step(cfg: Config, template, part_loss: PartMatchingLoss,
             # the predicted masks stay live
             pred_masked = texture_pred * mask_all_hypo[..., None]
             gt_masked = imgs.repeat_interleave(K, 0) * masks_rep[..., None]
-            with record_function("s2.lpips"):
+            with span("s2.lpips"):
                 dist = state.lpips(2 * pred_masked - 1, 2 * gt_masked - 1)
             sc["tex_loss"] = (dist.reshape(B, K)
                               * cam_probs.detach()).sum(1).mean()
@@ -394,7 +395,7 @@ def build_s2_step(cfg: Config, template, part_loss: PartMatchingLoss,
             # pass 2: hard visibility at the sampled camera. Its p2f is
             # all zeros (the reference's s2 quirk: the cycle target comes
             # from the hard renderer, which writes no p2f)
-            with record_function("s2.pass2_hard"):
+            with span("s2.pass2_hard"):
                 hard_out = hard_renderer.render(pred_vs.detach(), faces,
                                                 proj_cam, bins=main_bins)
             face_ids = hard_out.aggr[:, 1].reshape(B, -1)
@@ -402,7 +403,7 @@ def build_s2_step(cfg: Config, template, part_loss: PartMatchingLoss,
             if cfg.cycle_soft_p2f:
                 # the opt-in fix of that quirk: the soft render's real p2f
                 # at the sampled camera, stage 1's target; forward only
-                with record_function("s2.pass2_p2f"):
+                with span("s2.pass2_p2f"):
                     cycle_p2f = tex_renderer.render(
                         pred_vs.detach(), faces, proj_cam, tex.detach(),
                         need_p2f=True, tex_grads=False,
@@ -424,7 +425,7 @@ def build_s2_step(cfg: Config, template, part_loss: PartMatchingLoss,
             random_cams = rotate_cam(proj_cam, angles)
         # pass 3: the part groups and the GAN's unseen view in one render
         if default and main_bins is not None and part_render_eq:
-            with record_function("s2.pass3_merged"):
+            with span("s2.pass3_merged"):
                 groups = part_loss.texture_groups(B)
                 n_g = len(groups)
                 gan_bins = dis_renderer.compute_bins(pred_vs, faces,
@@ -444,12 +445,12 @@ def build_s2_step(cfg: Config, template, part_loss: PartMatchingLoss,
             # apart: the GAN's view (untextured: T2=1 ones), then each
             # part group on main_bins
             if cfg.use_gan:
-                with record_function(gan_range):
+                with span(gan_range):
                     unseen = dis_renderer.render(
                         pred_vs, faces, random_cams,
                         None if tex is None else tex.detach(),
                         tex_grads=False).rgba[..., :3]
-            with record_function(part_range):
+            with span(part_range):
                 p_loss = part_loss(pred_vs, faces, proj_cam, part_segs,
                                    bins=main_bins if part_bins_ok
                                    else None)[0]
@@ -519,7 +520,7 @@ def build_s1_step(cfg: Config, template, device=None, impl="auto"):
     init_fn = _make_init_fn(cfg, model, disc, lpips, device)
 
     def loss_fn(state: TrainState, batch, draws, epoch):
-        with record_function("s1.model"):
+        with span("s1.model"):
             outputs = model(batch["input_img"], eps=draws.get("eps"),
                             generator=state.generator)
         imgs, masks = batch["img"], batch["mask"]
@@ -534,7 +535,7 @@ def build_s1_step(cfg: Config, template, device=None, impl="auto"):
             tex = tex.reshape(B, tex.shape[1], T * T, 3)
 
         main_bins = None
-        with record_function("s1.pass1_fused" if cfg.use_texture
+        with span("s1.pass1_fused" if cfg.use_texture
                              else "s1.pass1_mask"):
             if share_bins:
                 main_bins = hard_renderer.compute_bins(pred_vs, faces,
@@ -571,13 +572,13 @@ def build_s1_step(cfg: Config, template, device=None, impl="auto"):
 
         if cfg.use_texture:
             texture_pred = tex_out.rgba[..., :3]
-            with record_function("s1.lpips"):
+            with span("s1.lpips"):
                 sc["tex_loss"] = state.lpips(
                     2 * (texture_pred * mask_pred_seen[..., None]) - 1,
                     2 * (imgs * masks[..., None]) - 1).mean()
             sc["tex_dt_loss"] = texture_dt_loss(tex_flow,
                                                 batch["dts_barrier"])
-            with record_function("s1.pass2_hard"):
+            with span("s1.pass2_hard"):
                 hard_out = hard_renderer.render(
                     pred_vs.detach(), faces, proj_cam.detach(),
                     bins=main_bins)
@@ -596,7 +597,7 @@ def build_s1_step(cfg: Config, template, device=None, impl="auto"):
                     0, 180, (n,), generator=state.generator,
                     device=device), B)
             random_cams = rotate_cam(proj_cam.detach(), angles)
-            with record_function("s1.pass3_gan"):
+            with span("s1.pass3_gan"):
                 mask_unseen = renderer.render(pred_vs, faces, random_cams,
                                               mask_only=True).rgba[..., 3]
             sc["gan_loss"], sc["acc_gan"] = gan_loss(

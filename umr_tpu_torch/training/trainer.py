@@ -3,6 +3,14 @@ the dataloader, the batch's host preparation and its copy to the card,
 the step, a one-step-lagged scalar drain, the log and the print / save
 cadences, checkpoints with auto-resume, and the stage budget.
 
+Each phase of the step cycle is a span (tracing.py): "trainer.loader"
+(the wait for the loader's batch), "trainer.prep" (prepare_batch),
+"trainer.transfer" (the copy to the card; its bytes are counted as
+"trainer.h2d_bytes"), "trainer.dispatch" (the step call and the queueing
+of its scalars), "trainer.drain" (the wait for a step's scalars), and
+"trainer.vis", "trainer.save" and "trainer.epoch_end". stage_budget.json
+is read from those spans' totals since the trainer began.
+
 Files in {checkpoint_dir}/{name}/: opts.log (the Config), loss_log.txt
 (visualizer.py), pred_net_{latest,<epoch>}.pth and pred_state.pt
 (checkpoints.py), stage_budget.json. With a visuals_fn
@@ -28,13 +36,16 @@ import torch
 
 from ..config import Config, normalize_images
 from ..parallel import is_writer, replicate
+from ..tracing import count, delta, span, totals
 from ..visualizer import Visualizer, green
 from . import checkpoints
 from .visuals import save_visuals
 
-# where each step cycle's wall time goes (stage_budget.json)
+# where each step cycle's wall time goes (stage_budget.json): the spans
+# "trainer.<key>"
 BUDGET_KEYS = ("loader", "prep", "transfer", "dispatch", "drain", "vis",
                "save")
+_END = object()
 
 
 def _f32(x):
@@ -75,14 +86,18 @@ def transfer(db, device):
     moved with .to; off the card the batch is returned as it is."""
     if device.type != "cuda":
         return db, ()
-    out, pinned = {}, []
+    out, pinned, nbytes = {}, [], 0
     for k, v in db.items():
         if torch.is_tensor(v):
+            if v.device.type == "cpu":
+                nbytes += v.nbytes
             out[k] = v.to(device)
         else:
             pinned.append(torch.from_numpy(np.ascontiguousarray(v))
                           .pin_memory())
+            nbytes += v.nbytes
             out[k] = pinned[-1].to(device, non_blocking=True)
+    count("trainer.h2d_bytes", nbytes)
     return out, tuple(pinned)
 
 
@@ -130,8 +145,7 @@ class Trainer:
         # each step; ref train_s2.py:183-184, 270)
         self._lagged_real = None
         self._pending = None
-        self._budget = dict.fromkeys(BUDGET_KEYS, 0.0)
-        self._budget_n = 0
+        self._began = totals()
         self._first_cycle_s = None
 
     def _maybe_auto_resume(self):
@@ -166,24 +180,33 @@ class Trainer:
     def save(self, label, export_pth=True):
         """The resume state, and the .pth unless export_pth=False (the
         mid-run cadence: only stage handoffs read the .pth)."""
-        t0 = time.perf_counter()
-        checkpoints.save_state(self.save_dir, self.state)
-        if export_pth:
-            checkpoints.save_pth(
-                os.path.join(self.save_dir, f"pred_net_{label}.pth"),
-                self.state.model,
-                meta={"trunk_pretrained": self.state.trunk_pretrained})
-        self._budget["save"] += time.perf_counter() - t0
+        with span("trainer.save"):
+            checkpoints.save_state(self.save_dir, self.state)
+            if export_pth:
+                checkpoints.save_pth(
+                    os.path.join(self.save_dir, f"pred_net_{label}.pth"),
+                    self.state.model,
+                    meta={"trunk_pretrained": self.state.trunk_pretrained})
         self._dump_budget()
 
+    def budget(self):
+        """{budget key: seconds} since the trainer began, from its spans;
+        "epoch_end" only once on_epoch_end has run."""
+        d = delta(self._began)
+        keys = BUDGET_KEYS + (("epoch_end",) if d["calls"].get(
+            "trainer.epoch_end") else ())
+        return {k: d["seconds"].get(f"trainer.{k}", 0.0) for k in keys}
+
     def _dump_budget(self):
-        if not self._budget_n or not self.writer:
+        # one step cycle per dispatch
+        n = delta(self._began)["calls"].get("trainer.dispatch", 0)
+        if not n or not self.writer:
             return
-        n = self._budget_n
+        budget = self.budget()
         out = {f"{k}_s_per_step": round(v / n, 4)
-               for k, v in self._budget.items()}
+               for k, v in budget.items()}
         out["steps"] = n
-        out["total_s_per_step"] = round(sum(self._budget.values()) / n, 4)
+        out["total_s_per_step"] = round(sum(budget.values()) / n, 4)
         if self._first_cycle_s is not None:
             out["first_cycle_s"] = round(self._first_cycle_s, 1)
         with open(os.path.join(self.save_dir, "stage_budget.json"), "w") as f:
@@ -230,31 +253,28 @@ class Trainer:
         if done_epochs and hasattr(self.dataloader, "_epoch"):
             self.dataloader._epoch = done_epochs
 
-        loop_start = t_mark = time.perf_counter()
+        loop_start = time.perf_counter()
+        cycles = 0
         for epoch in range(cfg.num_pretrain_epochs + done_epochs,
                            cfg.num_epochs):
             epoch_iter = 0
-            for batch in self.dataloader:
-                t0 = time.perf_counter()
-                self._budget["loader"] += t0 - t_mark
-                db = prepare_batch(batch, cfg.use_scops, cfg.use_texture)
-                # the lag holds while batch shapes are stable
-                cur_real = db["real_imgs"]
-                if (self._lagged_real is not None
-                        and self._lagged_real.shape == cur_real.shape):
-                    db["real_imgs"] = self._lagged_real
-                self._lagged_real = cur_real
-                t1 = time.perf_counter()
-                self._budget["prep"] += t1 - t0
-                db, pinned = transfer(db, self.device)
-                t2 = time.perf_counter()
-                self._budget["transfer"] += t2 - t1
+            for batch in self._batches():
+                with span("trainer.prep"):
+                    db = prepare_batch(batch, cfg.use_scops, cfg.use_texture)
+                    # the lag holds while batch shapes are stable
+                    cur_real = db["real_imgs"]
+                    if (self._lagged_real is not None
+                            and self._lagged_real.shape == cur_real.shape):
+                        db["real_imgs"] = self._lagged_real
+                    self._lagged_real = cur_real
+                with span("trainer.transfer"):
+                    db, pinned = transfer(db, self.device)
 
                 start = time.time()
-                self.state, scalars = self.step_fn(
-                    self.state, db, *self.extra_step_args(epoch))
-                queued = self._queue_scalars(scalars)
-                self._budget["dispatch"] += time.perf_counter() - t2
+                with span("trainer.dispatch"):
+                    self.state, scalars = self.step_fn(
+                        self.state, db, *self.extra_step_args(epoch))
+                    queued = self._queue_scalars(scalars)
                 dispatched += 1
                 # drain the PREVIOUS step's scalars now that this one is
                 # queued: the logged values are the same, one step late
@@ -263,11 +283,10 @@ class Trainer:
                 self._pending = (list(scalars), queued, start, epoch,
                                  epoch_iter, pinned, db)
                 epoch_iter += 1
-                self._budget_n += 1
-                if self._budget_n == 2 and self._first_cycle_s is None:
+                cycles += 1
+                if cycles == 2 and self._first_cycle_s is None:
                     # the first two cycles ~ warm-up (cuDNN, allocator)
                     self._first_cycle_s = time.perf_counter() - loop_start
-                t_mark = time.perf_counter()
 
                 if cfg.num_iter and dispatched >= cfg.num_iter:
                     total_steps, smoothed = self._drain(
@@ -280,11 +299,9 @@ class Trainer:
                 # 1's template update)
                 total_steps, smoothed = self._drain(total_steps, smoothed,
                                                     visualizer)
-                t0 = time.perf_counter()
-                self.state = self.on_epoch_end(self.state, epoch) or self.state
-                self._budget.setdefault("epoch_end", 0.0)
-                self._budget["epoch_end"] += time.perf_counter() - t0
-                t_mark = time.perf_counter()
+                with span("trainer.epoch_end"):
+                    self.state = (self.on_epoch_end(self.state, epoch)
+                                  or self.state)
 
             if (epoch + 1) % cfg.save_epoch_freq == 0:
                 total_steps, smoothed = self._drain(total_steps, smoothed,
@@ -296,6 +313,19 @@ class Trainer:
         self.save("latest")
         return self.state
 
+    def _batches(self):
+        """The loader's batches, each waited for inside "trainer.loader"
+        (the epoch's iterator is made there too)."""
+        it = None
+        while True:
+            with span("trainer.loader"):
+                if it is None:
+                    it = iter(self.dataloader)
+                batch = next(it, _END)
+            if batch is _END:
+                return
+            yield batch
+
     def _drain(self, total_steps, smoothed, visualizer):
         """Read back the pending step's scalars (waiting for that step
         alone) and run the print and save cadences for it."""
@@ -305,11 +335,10 @@ class Trainer:
         names, (values, event), start, epoch, epoch_iter, _, db = (
             self._pending)
         self._pending = None
-        t0 = time.perf_counter()
-        if event is not None:
-            event.synchronize()
-        sc = dict(zip(names, values.tolist()))
-        self._budget["drain"] += time.perf_counter() - t0
+        with span("trainer.drain"):
+            if event is not None:
+                event.synchronize()
+            sc = dict(zip(names, values.tolist()))
         sc["iter_time"] = time.time() - start
         self.history.append(sc)
         smoothed = smoothed * 0.99 + 0.01 * sc["total_loss"]
@@ -325,9 +354,8 @@ class Trainer:
                 and self.visuals_fn is not None
                 and cfg.display_freq > 0      # <= 0: never
                 and total_steps % cfg.display_freq == 0):
-            t0 = time.perf_counter()
-            save_visuals(self.visuals_fn(self.state, db), self.vis_out)
-            self._budget["vis"] += time.perf_counter() - t0
+            with span("trainer.vis"):
+                save_visuals(self.visuals_fn(self.state, db), self.vis_out)
             self._print(green(f"Visualization saved at {self.vis_out}."))
 
         if total_steps % cfg.save_latest_freq == 0:
