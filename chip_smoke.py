@@ -649,7 +649,7 @@ def category(dev, smi, template, tcfg, s1_pth):
     from umr_tpu_torch.ops import raster_kernel
     from umr_tpu_torch.ops.raster_bins import compute_raster_bins
     from umr_tpu_torch.ops.rasterize import soft_rasterize
-    from umr_tpu_torch.training.trainer import prepare_batch, transfer
+    from umr_tpu_torch.training.trainer import BatchPrep
 
     t_phase = time.perf_counter()
     n_b = -(-GEN_N // TRAIN_BATCH)
@@ -746,8 +746,9 @@ def category(dev, smi, template, tcfg, s1_pth):
 
     def feed(loader):
         def run():
+            prep = BatchPrep(device=dev)
             for b in loader:
-                transfer(prepare_batch(b), dev)
+                prep(b)
             torch.cuda.synchronize()
         return run
 
@@ -759,7 +760,7 @@ def category(dev, smi, template, tcfg, s1_pth):
     print(f"CategoryLoader(device_data=True): {staged_mb:.1f} MB staged in "
           f"{stage_s:.3f} s; {n_cmp} batches over {LOADER_EPOCHS} epochs "
           f"equal to the host loader's bit for bit; host-to-device bytes "
-          f"per batch through prepare_batch and the trainer's transfer "
+          f"per batch through the trainer's BatchPrep "
           f"(profiler): device loader {htod['device']:.0f}, host loader "
           f"{htod['host']:.0f} (device loader < {HTOD_BATCH_LIMIT})",
           flush=True)

@@ -399,14 +399,18 @@ def test_forward_kernel_work_split(cuda, kind, mode):
 
 def test_trainer_copies_batches_pinned_and_drains_one_step_late(cuda,
                                                                  tmp_path):
-    """The trainer on the card: each batch reaches the step as CUDA
-    tensors, equal to the host batch, and each step's scalars (queued to
-    pinned memory behind the step) come back in order, one step late; the
-    bytes copied from the host are counted as trainer.h2d_bytes."""
+    """The trainer on the card: it copies the loader's arrays that the
+    step reads (counted as trainer.h2d_bytes) and prepares each batch
+    there (one trainer.prep_on_device a step): every key of every step's
+    batch is a CUDA tensor equal bit for bit to the host prepare_batch,
+    real_imgs one batch late; each step's scalars (queued to pinned
+    memory behind the step) come back in order, one step late."""
     from umr_tpu_torch import tracing
     from umr_tpu_torch.config import Config
+    from umr_tpu_torch.data import synthetic_batch
     from umr_tpu_torch.training.steps import TrainState
-    from umr_tpu_torch.training.trainer import Trainer, prepare_batch
+    from umr_tpu_torch.training.trainer import (Trainer, prepare_batch,
+                                                step_keys)
 
     model = torch.nn.Linear(2, 2).to(cuda)
     disc = torch.nn.Linear(1, 1).to(cuda)
@@ -414,30 +418,32 @@ def test_trainer_copies_batches_pinned_and_drains_one_step_late(cuda,
                        optimizer=torch.optim.SGD(model.parameters(), lr=0.1),
                        generator=torch.Generator(cuda))
     rng = np.random.RandomState(0)
-    loader = [{"img": rng.uniform(0, 1, (2, 8, 8, 3)).astype(np.float32),
-               "mask": np.ones((2, 8, 8), np.float32)} for _ in range(3)]
+    loader = [synthetic_batch(rng, 2, 32) for _ in range(3)]
     seen = []
 
     def step_fn(st, db):
-        seen.append({k: v.cpu().numpy() for k, v in db.items()})
         assert all(v.is_cuda for v in db.values())
+        seen.append({k: v.cpu().numpy() for k, v in db.items()})
         st.step += 1
         return st, {"total_loss": db["img"].sum() * 0 + st.step}
 
     cfg = Config(checkpoint_dir=str(tmp_path), num_iter=3, num_epochs=1,
-                 print_scalars=False, use_scops=False)
+                 print_scalars=False)
     t = Trainer(cfg, step_fn, state, loader)
     assert t.device.type == "cuda"
     before = tracing.totals()
     t.train()
     assert [sc["total_loss"] for sc in t.history] == [1.0, 2.0, 3.0]
-    assert tracing.delta(before)["counters"]["trainer.h2d_bytes"] == sum(
-        v.nbytes for b in loader
-        for v in prepare_batch(b, use_scops=False).values())
-    for got, batch in zip(seen, loader):
-        want = prepare_batch(batch, use_scops=False)
-        np.testing.assert_array_equal(got["img"], want["img"])
-        np.testing.assert_array_equal(got["input_img"], want["input_img"])
-    # the GAN's reals lag one batch
-    np.testing.assert_array_equal(seen[1]["real_imgs"],
-                                  prepare_batch(loader[0])["real_imgs"])
+    counters = tracing.delta(before)["counters"]
+    keys = step_keys(loader[0])
+    assert counters["trainer.h2d_bytes"] == sum(
+        b[k].nbytes for b in loader for k in keys)
+    assert counters["trainer.prep_on_device"] == len(loader)
+    for i, (got, batch) in enumerate(zip(seen, loader)):
+        want = prepare_batch(batch)
+        # the GAN's reals lag one batch
+        want["real_imgs"] = prepare_batch(loader[max(i - 1, 0)])["real_imgs"]
+        assert list(got) == list(want)
+        for k in want:
+            np.testing.assert_array_equal(got[k], want[k],
+                                          err_msg=f"{k}, step {i}")

@@ -33,7 +33,11 @@ from umr_tpu_torch.data import synthetic_category as sc
 from umr_tpu_torch.mesh import build_template
 from umr_tpu_torch.native import edt_barrier
 from umr_tpu_torch.renderer import SoftRenderer
-from umr_tpu_torch.training.trainer import prepare_batch, transfer
+from umr_tpu_torch import tracing
+from umr_tpu_torch.data import synthetic_batch
+from umr_tpu_torch.training import trainer
+from umr_tpu_torch.training.trainer import (BatchPrep, prepare_batch,
+                                            step_keys, to_device)
 
 pytestmark = pytest.mark.filterwarnings("ignore")
 N, S, B = 6, 32, 4
@@ -241,8 +245,8 @@ def test_loaders_share_one_staged_copy(jax_data, use_scops):
 
 def test_device_batch_prepares_like_the_host_batch(jax_data):
     """prepare_batch normalises a device loader's batch on its device to
-    the host batch's values, and transfer() leaves tensors where they
-    are."""
+    the host batch's values, and to_device() leaves tensors where they
+    are and wraps numpy arrays in place."""
     kw = dict(batch_size=B, seed=3, use_scops=True)
     bh = next(iter(sc.CategoryLoader(jax_data, **kw)))
     bd = next(iter(sc.CategoryLoader(jax_data, device_data=True,
@@ -254,8 +258,64 @@ def test_device_batch_prepares_like_the_host_batch(jax_data):
             "head_points", "belly_points", "neck_points", "back_points"))
         g = pd[k].numpy() if torch.is_tensor(pd[k]) else pd[k]
         np.testing.assert_array_equal(g, ph[k], err_msg=k)
-    moved, pinned = transfer(pd, torch.device("cpu"))
-    assert pinned == () and all(moved[k] is pd[k] for k in pd)
+    before = tracing.totals()
+    moved, pinned = to_device(pd, torch.device("cpu"))
+    assert pinned == ()
+    assert tracing.delta(before)["counters"].get("trainer.h2d_bytes", 0) == 0
+    for k in pd:
+        if torch.is_tensor(pd[k]):
+            assert moved[k] is pd[k], k
+        else:
+            assert np.shares_memory(moved[k].numpy(), pd[k]), k
+
+
+@pytest.mark.parametrize("source", ["numpy", "tensors"])
+@pytest.mark.parametrize("use_scops,use_texture", [
+    (True, True), (True, False), (False, True), (False, False)])
+def test_batch_prep_prepares_like_the_host_batch(use_scops, use_texture,
+                                                 source, monkeypatch):
+    """The trainer's BatchPrep, on the CPU as on the card, gives every key
+    of the host prepare_batch bit for bit, real_imgs one batch late over
+    three batches and the batch's own again when the shape changes (there
+    a float64 img, cast where the batch is prepared), from a host loader's
+    numpy batches or a device loader's tensors. It takes only the loader's
+    arrays that the flags keep to the device (their bytes are what
+    trainer.h2d_bytes counts on the card; on the CPU nothing is copied:
+    numpy is wrapped in place) and counts one trainer.prep_on_device a
+    batch."""
+    rng = np.random.RandomState(5)
+    batches = [synthetic_batch(rng, 2, 16) for _ in range(3)]
+    batches.append(synthetic_batch(rng, 3, 16))
+    batches[-1]["img"] = batches[-1]["img"].astype(np.float64)
+    if source == "tensors":
+        batches = [{k: torch.from_numpy(v) for k, v in b.items()}
+                   for b in batches]
+    handed = []
+    monkeypatch.setattr(trainer, "to_device", lambda arrays, device: (
+        handed.append(arrays) or to_device(arrays, device)))
+    prep = BatchPrep(use_scops, use_texture, torch.device("cpu"))
+    keys = step_keys(batches[0], use_scops, use_texture)
+    host = [{k: v.numpy() if torch.is_tensor(v) else v for k, v in b.items()}
+            for b in batches]
+    for i, batch in enumerate(batches):
+        before = tracing.totals()
+        db, pinned = prep(batch)
+        counters = tracing.delta(before)["counters"]
+        assert pinned == ()
+        assert counters.get("trainer.h2d_bytes", 0) == 0
+        assert counters["trainer.prep_on_device"] == 1
+        assert list(handed[-1]) == keys
+        assert all(handed[-1][k] is batch[k] for k in keys)
+        if i < 3:   # float32 img: taken in place, not copied
+            assert np.shares_memory(db["img"].numpy(), host[i]["img"])
+        want = prepare_batch(host[i], use_scops, use_texture)
+        if i in (1, 2):
+            want["real_imgs"] = prepare_batch(host[i - 1])["real_imgs"]
+        assert list(db) == list(want)
+        for k in want:
+            assert torch.is_tensor(db[k]), k
+            np.testing.assert_array_equal(db[k].numpy(), want[k],
+                                          err_msg=f"{k}, batch {i}")
 
 
 def test_pair_loader_matches_jax(jax_data):

@@ -18,7 +18,8 @@ _HYPO and _AA (default 16, 256, 3, 6, 8, 1: bench.py's s2 step):
   the part matching, forward + backward at B;
   the discriminator, forward + backward at B real + B fake;
   the optimizer update (zero gradients);
-  the host-to-device copy of a prepared batch (trainer.transfer).
+  the trainer's batch route (trainer.BatchPrep: the loader's arrays
+    copied to the card and the batch prepared there).
 On the card each row is timed with CUDA events (`iters` calls after one
 warm-up), on the CPU with perf_counter; the warm-up call's rasterizer
 launches (ops/raster_kernel.py's counters) and forward value are kept.
@@ -50,7 +51,7 @@ from ..ops.grid_sample import sample_textures
 from ..ops.quaternion import rotate_cam
 from ..renderer import SoftRenderer
 from ..training.steps import _renderers, build_s2_step, normalize_part_segs
-from ..training.trainer import prepare_batch, transfer
+from ..training.trainer import BatchPrep, prepare_batch
 
 # the s2 part vertex sets (head, belly, neck, back): slices of a seeded
 # permutation of the template's vertices, as the JAX tool's
@@ -118,7 +119,8 @@ def run(device=None, iters=4, size_kw=None):
     model, disc, lpips, init_fn, step_fn = build_s2_step(
         cfg, template, part_loss, pvi, device)
     state = init_fn(0)
-    host_batch = prepare_batch(synthetic_batch(rng, B, S))
+    loader_batch = synthetic_batch(rng, B, S)
+    host_batch = prepare_batch(loader_batch)
     draws = dict(eps=rng.normal(size=(B, cfg.z_dim)).astype(np.float32),
                  sample_inds=rng.randint(0, cfg.num_hypo_cams, size=(B, 1)),
                  angles=rng.randint(0, 180, size=B))
@@ -238,8 +240,10 @@ def run(device=None, iters=4, size_kw=None):
     row("optimizer update", opt.step)
     opt.zero_grad(set_to_none=True)
 
+    batch_prep = BatchPrep(device=device)
+
     def put():
-        transfer(host_batch, device)
+        batch_prep(loader_batch)
         if device.type == "cuda":
             torch.cuda.synchronize(device)
     row("host->device batch transfer", put)

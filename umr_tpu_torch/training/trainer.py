@@ -1,15 +1,18 @@
 """The training loop (port of umr_tpu/training/trainer.py): epochs over
-the dataloader, the batch's host preparation and its copy to the card,
-the step, a one-step-lagged scalar drain, the log and the print / save
-cadences, checkpoints with auto-resume, and the stage budget.
+the dataloader, the loader's arrays taken to the model's device and
+the batch prepared there (BatchPrep), the step, a one-step-lagged
+scalar drain, the log and the print / save cadences, checkpoints with
+auto-resume, and the stage budget.
 
 Each phase of the step cycle is a span (tracing.py): "trainer.loader"
-(the wait for the loader's batch), "trainer.prep" (prepare_batch),
-"trainer.transfer" (the copy to the card; its bytes are counted as
-"trainer.h2d_bytes"), "trainer.dispatch" (the step call and the queueing
-of its scalars), "trainer.drain" (the wait for a step's scalars), and
-"trainer.vis", "trainer.save" and "trainer.epoch_end". stage_budget.json
-is read from those spans' totals since the trainer began.
+(the wait for the loader's batch), "trainer.transfer" (the loader's
+arrays taken to the model's device: copied to the card, their bytes
+counted as "trainer.h2d_bytes"; wrapped on the CPU), "trainer.prep"
+(prepare_batch and the GAN's lag, on that device), "trainer.dispatch"
+(the step call and the queueing of its scalars), "trainer.drain" (the
+wait for a step's scalars), and "trainer.vis", "trainer.save" and
+"trainer.epoch_end". stage_budget.json is read from those spans' totals
+since the trainer began.
 
 Files in {checkpoint_dir}/{name}/: opts.log (the Config), loss_log.txt
 (visualizer.py), pred_net_{latest,<epoch>}.pth and pred_state.pt
@@ -54,51 +57,102 @@ def _f32(x):
     return x.float() if torch.is_tensor(x) else x.astype(np.float32)
 
 
-def prepare_batch(batch, use_scops=True, use_texture=True):
+def step_keys(batch, use_scops=True, use_texture=True):
+    """The loader's keys that the step reads under the flags: img and
+    mask, dts_barrier with texture, part_prob and the four point sets
+    with SCOPS parts."""
+    keys = ["img", "mask"]
+    if use_texture and "dts_barrier" in batch:
+        keys.append("dts_barrier")
+    if use_scops and "part_prob" in batch:
+        keys += ["part_prob", "head_points", "belly_points", "neck_points",
+                 "back_points"]
+    return keys
+
+
+def prepare_batch(batch, use_scops=True, use_texture=True, real_from=None):
     """Batch dict -> the step's input dict: normalised input images,
     masks, masked "real" images, and the barrier and part fields the
     losses read. Numpy entries give numpy; entries that are tensors (a
     device loader's batch) stay on their device and are normalised
-    there."""
+    there. real_from: the float32 (img, mask) whose masked images are
+    real_imgs (the GAN's lag, BatchPrep); by default the batch's own."""
     imgs = _f32(batch["img"])
     mask = _f32(batch["mask"])
+    real_img, real_mask = (imgs, mask) if real_from is None else real_from
     out = {
         "img": imgs,
         "input_img": normalize_images(imgs),
         "mask": mask,
-        "real_imgs": imgs * mask[..., None],
+        "real_imgs": real_img * real_mask[..., None],
     }
-    if use_texture and "dts_barrier" in batch:
-        out["dts_barrier"] = _f32(batch["dts_barrier"])
-    if use_scops and "part_prob" in batch:
-        out["part_prob"] = _f32(batch["part_prob"])
-        for k in ("head_points", "belly_points", "neck_points",
-                  "back_points"):
-            out[k] = _f32(batch[k])
+    for k in step_keys(batch, use_scops, use_texture)[2:]:
+        out[k] = _f32(batch[k])
     return out
 
 
-def transfer(db, device):
-    """(the step's batch on `device`, the pinned host buffers its copies
-    read). On the card, numpy entries are copied from pinned memory
-    without blocking (the buffers must live until the step is drained),
-    tensors already there are taken as they are and tensors elsewhere
-    moved with .to; off the card the batch is returned as it is."""
-    if device.type != "cuda":
-        return db, ()
+def to_device(arrays, device):
+    """(the arrays as tensors on `device`, the pinned host buffers their
+    copies read). A numpy array is taken as it is (no cast): copied to
+    the card from pinned memory without blocking (the buffers must live
+    until the step is drained), wrapped in place on the CPU. A tensor
+    already on `device` is taken as it is, one elsewhere moved with .to.
+    The bytes copied from host memory to another device are counted as
+    trainer.h2d_bytes."""
     out, pinned, nbytes = {}, [], 0
-    for k, v in db.items():
+    for k, v in arrays.items():
         if torch.is_tensor(v):
-            if v.device.type == "cpu":
+            if v.device.type == "cpu" and device.type != "cpu":
                 nbytes += v.nbytes
             out[k] = v.to(device)
-        else:
-            pinned.append(torch.from_numpy(np.ascontiguousarray(v))
-                          .pin_memory())
+            continue
+        host = torch.from_numpy(np.ascontiguousarray(v))
+        if device.type == "cuda":
+            host = host.pin_memory()
+            pinned.append(host)
             nbytes += v.nbytes
-            out[k] = pinned[-1].to(device, non_blocking=True)
+        out[k] = host.to(device, non_blocking=True)
     count("trainer.h2d_bytes", nbytes)
     return out, tuple(pinned)
+
+
+class BatchPrep:
+    """Loader batch -> (the step's batch on `device`, the pinned host
+    buffers its copies read), the GAN's real images one batch behind:
+    while batch shapes hold, real_imgs is made from the previous batch's
+    img and mask, as the reference's random_imgs buffer (filled from the
+    first batch, refreshed after each step; ref train_s2.py:183-184, 270).
+
+    The loader's arrays that the flags keep are taken to the device as
+    they are (to_device: copied to the card, wrapped on the CPU; a device
+    loader's tensors are not copied again) and prepared there, so the
+    previous batch's img and mask, and the lag made from them, stay on
+    the device. Each batch counts one "trainer.prep_on_device"."""
+
+    def __init__(self, use_scops=True, use_texture=True,
+                 device=torch.device("cpu")):
+        self.use_scops = use_scops
+        self.use_texture = use_texture
+        self.device = device
+        self._prev = None       # the previous step batch's (img, mask)
+
+    def __call__(self, batch):
+        with span("trainer.transfer"):
+            batch, pinned = to_device(
+                {k: batch[k] for k in step_keys(
+                    batch, self.use_scops, self.use_texture)},
+                self.device)
+        with span("trainer.prep"):
+            prev = self._prev
+            if prev is not None and (
+                    (prev[0].shape, prev[1].shape)
+                    != (batch["img"].shape, batch["mask"].shape)):
+                prev = None
+            db = prepare_batch(batch, self.use_scops, self.use_texture,
+                               real_from=prev)
+            self._prev = db["img"], db["mask"]
+            count("trainer.prep_on_device", 1)
+        return db, pinned
 
 
 class Trainer:
@@ -108,12 +162,13 @@ class Trainer:
     return a new state (stage 1's template update). state is a
     training/steps.py::TrainState.
 
-    When the model lies on the card, the trainer copies each batch's host
-    arrays there from pinned memory without blocking (a device loader's
-    tensors are not copied again; transfer()), and reads a step's scalars
+    The trainer takes the loader's arrays that the step reads to the
+    model's device and prepares the batch there (BatchPrep): on the card
+    it copies them from pinned memory without blocking (a device
+    loader's tensors are not copied again), and reads a step's scalars
     back only after it has dispatched the next step (their copy to the
     host is queued behind the step that made them), so host work can
-    overlap the card's. On the CPU the step takes the batch as it comes.
+    overlap the card's.
 
     visuals_fn(state, batch) -> the visuals of training/visuals.py, called
     when every display_freq-th step is drained, with that step's batch.
@@ -140,10 +195,7 @@ class Trainer:
             self._dump_opts()
         self._maybe_auto_resume()
         self.state = replicate(self.state)
-        # the GAN's "real" images lag one batch behind, as the reference's
-        # random_imgs buffer (filled from the first batch, refreshed after
-        # each step; ref train_s2.py:183-184, 270)
-        self._lagged_real = None
+        self._prep = BatchPrep(cfg.use_scops, cfg.use_texture, self.device)
         self._pending = None
         self._began = totals()
         self._first_cycle_s = None
@@ -259,16 +311,7 @@ class Trainer:
                            cfg.num_epochs):
             epoch_iter = 0
             for batch in self._batches():
-                with span("trainer.prep"):
-                    db = prepare_batch(batch, cfg.use_scops, cfg.use_texture)
-                    # the lag holds while batch shapes are stable
-                    cur_real = db["real_imgs"]
-                    if (self._lagged_real is not None
-                            and self._lagged_real.shape == cur_real.shape):
-                        db["real_imgs"] = self._lagged_real
-                    self._lagged_real = cur_real
-                with span("trainer.transfer"):
-                    db, pinned = transfer(db, self.device)
+                db, pinned = self._prep(batch)
 
                 start = time.time()
                 with span("trainer.dispatch"):
