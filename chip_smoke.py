@@ -62,6 +62,7 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 KERNEL_SRC = "umr_tpu_torch/csrc/raster_fwd.cu"
+BINS_SRC = "umr_tpu_torch/csrc/raster_bins.cu"
 TPU_KERNEL = "umr_tpu/ops/raster_kernel.py:299"   # _fwd_kernel
 BWD_SRC = "umr_tpu_torch/csrc/raster_bwd.cu"
 BWD_TPU_KERNEL = "umr_tpu/ops/raster_kernel_bwd.py:46"   # _bwd_kernel
@@ -81,6 +82,7 @@ TIMED_STEPS = 5          # then 1 warm-up and these, timed with CUDA events
 FOLD_SLICE = 8           # images of the fold (128) and of the merged pass
                          # (48) the plain backward takes
 TRACE_STEPS = 3          # steps traced for the step's split
+BINS_REPS = 10           # traced binnings of one render, timed by kernel
 # the stage-1 slice: train_s1.run at the Config default batch (64) and full
 # width, 2 epochs of 3 batches with the template updated after each
 S1_BATCH = 64
@@ -647,7 +649,6 @@ def category(dev, smi, template, tcfg, s1_pth):
     from umr_tpu_torch.experiments.synthetic_parity import (identity_pck,
                                                             pair_keypoints)
     from umr_tpu_torch.ops import raster_kernel
-    from umr_tpu_torch.ops.raster_bins import compute_raster_bins
     from umr_tpu_torch.ops.rasterize import soft_rasterize
     from umr_tpu_torch.training.trainer import BatchPrep
 
@@ -688,12 +689,8 @@ def category(dev, smi, template, tcfg, s1_pth):
     for label, r in gr.items():
         kw = r["kw"]
         S = kw["image_size"]
-        with torch.no_grad():
-            full = compute_raster_bins(
-                r["fv"], S, raster_kernel.TILE_SIZE, kw["sigma_val"],
-                kw["dist_eps"], r["fv"].shape[1], raster_kernel.MAX_COVER,
-                r["fv"].shape[1] * 16 + 8 * (S // 32) ** 2)
-        most = int(torch.diff(full[1], dim=1).max())
+        # the generator's own bins are the renderer's full bins
+        most = int(torch.diff(r["bins"][1], dim=1).max())
         ms_k, _ = cuda_time(lambda: render_fwd(r), 10)
         counts, fb, _ = render_bounds(r)
         sl = dict(r, fv=r["fv"][:GEN_SLICE].contiguous(),
@@ -708,8 +705,8 @@ def category(dev, smi, template, tcfg, s1_pth):
                 sl["fv"], sl["tex"], **plain_kw), 1, warmup=0)
         got = compare(
             f"generator {label} render: {GEN_SLICE} images on the "
-            f"generator's own bins (cap {kw['mf_cap']}, fullest tile "
-            f"{most} faces)", out, ref, False)
+            f"generator's own bins (every face a tile reaches; fullest "
+            f"tile {most} faces)", out, ref, False)
         renders[label] = dict(got, ms=ms_k, bound_ms=fb[0], bound_by=fb[1],
                               slice_ms=ms_s, slice_plain_ms=ms_p,
                               fullest_tile=most, counts=counts)
@@ -1456,9 +1453,9 @@ def flag_variants(dev, smi, template, tcfg, tloader, seg, pvi, part_loss,
         fwd = checks["check_fwd_slice"](label, r, sel)
         bwd = checks["check_slice"](
             f"{label} slice: {FOLD_SLICE} of {n_img} images (images "
-            f"{sel.tolist()}, T2={r['tex'].shape[2]}, on bins that drop "
-            "nothing, the plain backward on the kernel forward's outputs)",
-            checks["slice_of"](r, sel, whole=True), seed,
+            f"{sel.tolist()}, T2={r['tex'].shape[2]}, on the main path's "
+            "bins, the plain backward on the kernel forward's outputs)",
+            checks["slice_of"](r, sel), seed,
             shared_forward=True)
         slices[label] = dict(images=n_img, t2=r["tex"].shape[2],
                              fwd=fwd, bwd=bwd)
@@ -2477,19 +2474,24 @@ def main():
     sys.path.insert(0, os.path.join(ROOT, "tests"))
     from golden_raster import golden_soft_rasterize
     from umr_tpu_torch.config import Config
+    from umr_tpu_torch import tracing
     from umr_tpu_torch.data import synthetic_batch
     from umr_tpu_torch.experiments import demo, test_iou
     from umr_tpu_torch.experiments.profile_slice import random_model
     from umr_tpu_torch.experiments.raster_bench import (
         ptxas_usage, render_bounds, render_bwd, render_fwd, step_renders,
         synthetic_semantic)
-    from umr_tpu_torch.experiments.raster_bound import (lanes, pair_counts,
+    from umr_tpu_torch.experiments.profile_slice import trace_events
+    from umr_tpu_torch.experiments.raster_bound import (bins_bound, lanes,
+                                                        pair_counts,
                                                         raster_bound)
     from umr_tpu_torch.mesh import build_template
     from umr_tpu_torch.models import symmetrize
-    from umr_tpu_torch.ops import raster_kernel
-    from umr_tpu_torch.ops.raster_bins import compute_raster_bins
-    from umr_tpu_torch.ops.rasterize import soft_rasterize
+    from umr_tpu_torch.ops import raster_bins, raster_kernel
+    from umr_tpu_torch.ops.raster_bins import (_full_bins_plain,
+                                               face_tile_rect, full_entries,
+                                               full_raster_bins)
+    from umr_tpu_torch.ops.rasterize import soft_rasterize, threshold_of
     from umr_tpu_torch.ops.rasterize_bwd import soft_rasterize_bwd
     from umr_tpu_torch.renderer import (SoftRenderer, apply_lighting,
                                         surface_normals)
@@ -2532,7 +2534,9 @@ def main():
     F = template.faces.shape[0]
     rend = SoftRenderer(image_size=IMAGE_SIZE)     # 2x anti-aliased render
     S = rend.render_size
-    cap = rend.resolved_mf_cap(F)
+    # the kernels walk every entry of the main path's bins: at most every
+    # face in a tile, padded
+    cap = full_entries(F, 1)
     rkw = dict(image_size=S, sigma_val=rend.sigma_val,
                dist_eps=rend.dist_eps, gamma_val=rend.gamma_val)
     max_err = 0.0
@@ -2540,17 +2544,14 @@ def main():
                            ("hard", 36, 3)):
         fv, tex = sphere_scenes(rend, template, SCENE_B, T2, seed, dev)
         tex = None if T2 == 1 else tex
-        full = compute_raster_bins(
-            fv, S, raster_kernel.TILE_SIZE, rend.sigma_val, rend.dist_eps, F,
-            raster_kernel.MAX_COVER, F * 16 + 8 * (S // 32) ** 2)
+        full = full_raster_bins(fv, S, rend.sigma_val, rend.dist_eps)
         most = int(torch.diff(full[1], dim=1).max())
-        assert most <= cap, f"a tile holds {most} > cap {cap} entries"
         kw = dict(rkw, aggr_func_rgb=mode)
-        out = raster_kernel.soft_rasterize_fwd(fv, tex, mf_cap=cap, **kw)
+        out = raster_kernel.soft_rasterize_fwd(fv, tex, **kw)
         torch.cuda.synchronize()
         ref = soft_rasterize(fv, tex, **kw)
         max_err = max(max_err, compare(
-            f"{mode} T2={T2} B={SCENE_B} F={F} S={S} cap={cap} (fullest tile "
+            f"{mode} T2={T2} B={SCENE_B} F={F} S={S} (fullest tile "
             f"{most} entries)", out, ref, mode == "hard")["rgba"])
 
     gkw = dict(image_size=32, sigma_val=3e-3, gamma_val=1e-2, dist_eps=1e-4,
@@ -2639,10 +2640,9 @@ def main():
         same faces, the plain output held against the kernel's. Returns
         (ms with binning, binning ms, plain ms, max |rgba| diff)."""
         ms_k, out = cuda_time(lambda: raster_kernel.soft_rasterize_fwd(
-            fv, tex, mf_cap=cap, **kw), 20)
-        ms_b, _ = cuda_time(lambda: compute_raster_bins(
-            fv, S, raster_kernel.TILE_SIZE, rend.sigma_val, rend.dist_eps,
-            cap, raster_kernel.MAX_COVER), 20)
+            fv, tex, **kw), 20)
+        ms_b, _ = cuda_time(lambda: full_raster_bins(
+            fv, S, rend.sigma_val, rend.dist_eps), 20)
         ms_p, ref = cuda_time(lambda: soft_rasterize(fv, tex, **kw),
                               plain_reps)
         err = compare(label, out, ref,
@@ -2680,11 +2680,9 @@ def main():
     max_err = max(max_err, err)
 
     with torch.no_grad():
-        iou_bins = compute_raster_bins(fv, S, raster_kernel.TILE_SIZE,
-                                       rend.sigma_val, rend.dist_eps, cap,
-                                       raster_kernel.MAX_COVER)
+        iou_bins = full_raster_bins(fv, S, rend.sigma_val, rend.dist_eps)
         ms_kernel, _ = cuda_time(lambda: raster_kernel.soft_rasterize_fwd(
-            fv, None, mf_cap=cap, bins=iou_bins, **rkw), 20)
+            fv, None, bins=iou_bins, **rkw), 20)
 
     def counts_of(fv_, bins_):
         return pair_counts(fv_, bins_, S, cap, rend.sigma_val, rend.dist_eps)
@@ -2697,18 +2695,46 @@ def main():
           f"threshold, in depth: {iou_counts}) [{smi}]")
 
     def fullest_tiles(fv_):
-        """Per image, the faces binned to its fullest tile, uncapped."""
-        full = compute_raster_bins(
-            fv_, S, raster_kernel.TILE_SIZE, rend.sigma_val, rend.dist_eps,
-            F, raster_kernel.MAX_COVER, F * 16 + 8 * (S // 32) ** 2)
+        """Per image, the faces binned to its fullest tile."""
+        full = full_raster_bins(fv_, S, rend.sigma_val, rend.dist_eps)
         return torch.diff(full[1], dim=1).amax(dim=1)
 
-    def full_bins(fv_):
-        """Bins that drop nothing: every face in every tile it reaches."""
-        tx = S // raster_kernel.TILE_SIZE
-        return compute_raster_bins(
-            fv_, S, raster_kernel.TILE_SIZE, rend.sigma_val, rend.dist_eps,
-            F, tx, F * tx * tx + 8 * tx * tx)
+    def reached_pairs(fv_):
+        """Per image, the (face, tile) pairs the faces' margin-expanded
+        bboxes reach, from each face's tile rectangle."""
+        _, margin = threshold_of(rend.sigma_val, rend.dist_eps)
+        tx0, tx1, ty0, ty1, off = face_tile_rect(
+            fv_[..., 0], fv_[..., 1], S, raster_kernel.TILE_SIZE, margin)
+        return torch.where(off, 0, (tx1 - tx0 + 1) * (ty1 - ty0 + 1)).sum(1)
+
+    def check_bins(label, fv_):
+        """The binning kernels on one recorded render's faces against
+        their plain twin (astarts equal, al_fids equal up to each image's
+        end), and each kernel's device time (a trace of BINS_REPS
+        binnings) beside its byte bound."""
+        args = (S, rend.sigma_val, rend.dist_eps)
+        with torch.no_grad():
+            got = full_raster_bins(fv_, *args)
+            want = _full_bins_plain(fv_, *args)
+            assert torch.equal(got[1], want[1]), label
+            pos = torch.arange(got[0].shape[1], device=dev)
+            live = pos < got[1][:, -1:]
+            assert torch.equal(torch.where(live, got[0], F),
+                               torch.where(live, want[0], F)), label
+            events, _ = trace_events(lambda: full_raster_bins(fv_, *args),
+                                     BINS_REPS)
+        bounds = bins_bound(got, F)
+        ms = {k: sum(float(e["dur"]) for e in events
+                     if e.get("cat") == "kernel" and k in e.get("name", ""))
+              / BINS_REPS / 1e3 for k in bounds}
+        print(f"{label} binning kernels vs plain twin, {fv_.shape[0]} "
+              f"images: equal ({int(live.sum())} entries with padding); "
+              + ", ".join(f"{k} {ms[k]:.4f} ms (bound {bounds[k][0]:.5f} "
+                          f"ms, {bounds[k][1]}, {100 * bounds[k][0] / ms[k]:.1f}"
+                          "% of it)" for k in bounds) + f" [{smi}]")
+        assert all(ms.values()), ms
+        return dict(images=fv_.shape[0], entries=int(live.sum()),
+                    ms=ms, bound_ms={k: b[0] for k, b in bounds.items()})
 
     def fwd_kernel(r):
         """The forward instance a recorded render launches."""
@@ -2720,14 +2746,10 @@ def main():
         """The backward instance: <texel lanes, z lanes>."""
         return "raster_bwd_kernel<{:d},{:d}>".format(*lanes(r["bwd"]))
 
-    def slice_of(r, sel, whole=False):
-        """Images sel of a recorded render, on its own bins or (whole) on
-        bins that drop nothing."""
+    def slice_of(r, sel):
+        """Images sel of a recorded render, on its own bins (the main
+        path's: every face a tile reaches)."""
         fv_, tex_ = r["fv"][sel].contiguous(), r["tex"][sel].contiguous()
-        if whole:
-            with torch.no_grad():
-                return dict(r, fv=fv_, tex=tex_, bins=full_bins(fv_),
-                            kw=dict(r["kw"], mf_cap=F))
         return dict(r, fv=fv_, tex=tex_,
                     bins=tuple(b[sel].contiguous() for b in r["bins"]))
 
@@ -2792,11 +2814,12 @@ def main():
         return dict(ms=ms_k, plain_ms=ms_p, bound=sb, max_abs=e, max_rel=rel)
 
     def check_fwd_slice(label, r, sel):
-        """The forward kernel on images sel of a recorded render, on bins
-        that drop nothing, against the plain version (its default
-        face_chunk: no p2f is read here) at compare's limits; then the
-        kernel's time and the plain version's. Returns the readings."""
-        sl = slice_of(r, sel, whole=True)
+        """The forward kernel on images sel of a recorded render, on its
+        own bins (which drop nothing), against the plain version (its
+        default face_chunk: no p2f is read here) at compare's limits; then
+        the kernel's time and the plain version's. Returns the
+        readings."""
+        sl = slice_of(r, sel)
         kw = sl["kw"]
         ms_k, out = cuda_time(lambda: render_fwd(sl), 10)
         plain_kw = {k: kw[k] for k in (
@@ -2807,18 +2830,11 @@ def main():
                 sl["fv"], sl["tex"], **plain_kw), 1, warmup=0)
         got = compare(
             f"{label} forward slice: {len(sel)} images {sel.tolist()} on "
-            f"bins that drop nothing ({fwd_kernel(sl)})", out, ref,
+            f"the main path's bins ({fwd_kernel(sl)})", out, ref,
             kw["aggr_func_rgb"] == "hard")
         print(f"{label} forward slice: kernel {ms_k:.3f} ms, plain "
               f"{ms_p:.1f} ms [{smi}]", flush=True)
         return dict(got, images=sel.tolist(), ms=ms_k, plain_ms=ms_p)
-
-    def check_cap(fv_, label):
-        """The plain version renders every face: it meets the kernel only
-        where no tile overflows the kernel's cap."""
-        most = int(fullest_tiles(fv_).max())
-        assert most <= cap, f"{label}: a tile holds {most} > cap {cap}"
-        return most
 
     phase("6. backward kernel vs plain version and the golden backward")
     bwd_err, bwd_rel = 0.0, 0.0
@@ -2827,11 +2843,10 @@ def main():
              ("mask_only", {"mask_only": True}))
     for i, (label, opts) in enumerate(modes):
         fv_s, tex_s = sphere_scenes(rend, template, SCENE_B, 36, 10 + i, dev)
-        most = check_cap(fv_s, label)
+        most = int(fullest_tiles(fv_s).max())
         g = torch.randn((SCENE_B, S, S, 4), device=dev,
                         generator=torch.Generator(dev).manual_seed(20 + i))
-        kf, kt = kernel_grads(raster_kernel, fv_s, tex_s, g, mf_cap=cap,
-                              **opts, **rkw)
+        kf, kt = kernel_grads(raster_kernel, fv_s, tex_s, g, **opts, **rkw)
         pf, pt = plain_grads(fv_s, tex_s, g, rkw, opts)
         e, r = grad_check(f"{label} B={SCENE_B} S={S} T2=36 (fullest tile "
                           f"{most})", (kf, kt), (pf, pt), opts)
@@ -2920,24 +2935,33 @@ def main():
 
     # the renders of one step (training/steps.py) as the kernels' route
     # receives them: the fold, the hard pass, the merged part + GAN pass
+    before = tracing.totals()
     with step_renders(("fold", "hard", "merged")) as s2r:
+        raster_bins.LAUNCHES = 0
         one_step()
+        s2_binnings = raster_bins.LAUNCHES
     torch.cuda.synchronize()
+    binned = tracing.delta(before)["counters"]
+    print(f"s2 step's binnings (forward and backward launches, and the "
+          f"recorder's): {s2_binnings} binning launches, "
+          f"{binned.get('raster.bins_entries', 0)} (face, tile) entries, "
+          f"{binned.get('raster.bins_dropped', 0)} dropped")
+    assert s2_binnings == 5, s2_binnings
+    assert binned.get("raster.bins_dropped", 0) == 0, binned
+    bins_rec = {"fold": check_bins("s2 fold render", s2r["fold"]["fv"])}
     shapes = {}
     for label in ("fold", "merged"):
         r = s2r[label]
         fv_t = r["fv"]
-        per_img = fullest_tiles(fv_t)
-        most = int(per_img.max())
-        over = int((per_img > cap).sum())
+        most = int(fullest_tiles(fv_t).max())
         n_img = fv_t.shape[0]
-        print(f"{label} render: {over} of {n_img} images have a tile over "
-              f"the cap of {cap} faces (fullest {most}); the kernels keep "
-              f"the first {cap} faces of such a tile, as the TPU kernel does")
+        held = r["bins"][1][:, -1].sum().item()
+        assert held >= reached_pairs(fv_t).sum().item()
+        print(f"{label} render: {n_img} images, fullest tile {most} faces, "
+              f"{held} entries with padding in the bins")
         with torch.no_grad():
-            ms_b, _ = cuda_time(lambda: compute_raster_bins(
-                fv_t, S, raster_kernel.TILE_SIZE, rend.sigma_val,
-                rend.dist_eps, cap, raster_kernel.MAX_COVER), 10)
+            ms_b, _ = cuda_time(lambda: full_raster_bins(
+                fv_t, S, rend.sigma_val, rend.dist_eps), 10)
         ms_f, o = cuda_time(lambda: render_fwd(r), 10)
         g = torch.randn(o.rgba.shape, device=dev,
                         generator=torch.Generator(dev).manual_seed(5))
@@ -2945,7 +2969,7 @@ def main():
         del o, g
         counts, fb, bb = render_bounds(r)
         shapes[label] = dict(fwd_ms=ms_f, bins_ms=ms_b, bwd_ms=ms_g,
-                             fwd_bound=fb, bwd_bound=bb, over_cap=over,
+                             fwd_bound=fb, bwd_bound=bb, entries=held,
                              counts=counts, bwd_kernel=bwd_kernel(r))
         print(f"{label} render, {n_img} images at {S}^2, T2=36 (fullest "
               f"tile {most}; slots, pairs in bbox, past the threshold, in "
@@ -2979,20 +3003,18 @@ def main():
         max_err = max(max_err, fwd_slices["s2 " + label]["rgba"])
 
     # the plain backward is dense over all pairs: minutes at a whole pass,
-    # and it renders every face, so kernel and plain meet on FOLD_SLICE
-    # images of each pass whose tiles all fit the cap, spread over the
-    # pass (the merged pass: its part groups and its unseen view), the
-    # kernel on the pass's own bins
+    # so kernel and plain meet on FOLD_SLICE images of each pass, spread
+    # over the pass (the merged pass: its part groups and its unseen
+    # view), the kernel on the pass's own bins
     slices = {}
     for label, seed in (("fold", 6), ("merged", 7)):
         r = s2r[label]
-        ok = torch.nonzero(fullest_tiles(r["fv"]) <= cap)[:, 0]
-        assert len(ok) >= FOLD_SLICE, f"{label}: {len(ok)} images in the cap"
-        sel = ok[torch.linspace(0, len(ok) - 1, FOLD_SLICE,
-                                device=ok.device).round().long()]
+        n_img = r["fv"].shape[0]
+        sel = torch.linspace(0, n_img - 1, FOLD_SLICE,
+                             device=dev).round().long()
         slices[label] = check_slice(
-            f"{label} slice: {FOLD_SLICE} images within the cap, on the "
-            f"pass's bins (predicted meshes, images {sel.tolist()})",
+            f"{label} slice: {FOLD_SLICE} images on the pass's bins "
+            f"(predicted meshes, images {sel.tolist()})",
             slice_of(r, sel), seed)
         bwd_err = max(bwd_err, slices[label]["max_abs"])
         bwd_rel = max(bwd_rel, slices[label]["max_rel"])
@@ -3011,12 +3033,12 @@ def main():
     # the plain version one face at a time over the whole image
     pkw = dict(rkw, face_chunk=1, pixel_rows_per_block=S, need_p2f=True)
     p2f_err = 0.0
-    for seed in (1, 3):      # phase 3's scenes, every tile within the cap
+    for seed in (1, 3):      # phase 3's scenes
         fv_s, tex_s = sphere_scenes(rend, template, SCENE_B, 36, seed, dev)
-        most = check_cap(fv_s, "p2f sphere scene")
+        most = int(fullest_tiles(fv_s).max())
         with torch.no_grad():
             raster_kernel.P2F_LAUNCHES = 0
-            out = raster_kernel.soft_rasterize_fwd(fv_s, tex_s, mf_cap=cap,
+            out = raster_kernel.soft_rasterize_fwd(fv_s, tex_s,
                                                    need_p2f=True, **rkw)
             torch.cuda.synchronize()
             assert raster_kernel.P2F_LAUNCHES == 1
@@ -3114,35 +3136,44 @@ def main():
     # the renders of one s1 step as the kernels' route receives them: the
     # fused render (p2f, rgb_geom_detach), the hard pass on its bins, the
     # GAN's mask-only render of the unseen view on its own bins
+    before = tracing.totals()
     with step_renders(("s1 fused", "s1 hard", "s1 gan")) as s1r:
+        raster_bins.LAUNCHES = 0
         one_s1_step()
+        s1_binnings = raster_bins.LAUNCHES
     torch.cuda.synchronize()
+    binned = tracing.delta(before)["counters"]
+    assert s1_binnings == 5, s1_binnings
     fused = s1r["s1 fused"]
     fv1, bins1 = fused["fv"], fused["bins"]
-    # the main path's bins keep at most `cap` faces per tile, a face in at
-    # most MAX_COVER tiles per axis and 8 F entries per image, as the TPU
-    # kernel's; the plain version renders every face. At the s1 model's
-    # early meshes (large, crossing faces) those caps bite: count what
-    # they drop, and hold kernel and plain on bins that drop nothing
+    # the main path's bins hold every (face, tile) pair that a face's
+    # margin-expanded bbox reaches, however large the s1 model's early
+    # faces are (the JAX package's caps drop a large share there), and
+    # the step's binnings drop nothing
     with torch.no_grad():
-        kept = (bins1[0] < F).sum(1)
-        every = (full_bins(fv1)[0] < F).sum(1)
-    dropped = every - kept
-    s1_over = int((dropped > 0).sum())
-    print(f"s1 fused render: {s1_over} of {S1_BATCH} images lose (face, "
-          f"tile) entries to the bins' caps ({int(dropped.sum())} of "
-          f"{int(every.sum())}; per image at most {int(dropped.max())}; "
-          f"fullest tile {int(fullest_tiles(fv1).max())} of cap {cap}): "
-          "the kernels render what the TPU kernel renders there", flush=True)
+        pos = torch.arange(bins1[0].shape[1], device=dev)
+        kept = ((bins1[0] < F) & (pos < bins1[1][:, -1:])).sum(1)
+        every = reached_pairs(fv1)
+    s1_dropped = int(binned.get("raster.bins_dropped", 0))
+    print(f"s1 fused render: its bins hold {int(kept.sum())} (face, tile) "
+          f"entries of the {int(every.sum())} its faces reach (per image "
+          f"{int(kept.min())}..{int(kept.max())}; fullest tile "
+          f"{int(fullest_tiles(fv1).max())} faces); the step's binnings "
+          f"(and the recorder's): {s1_binnings} binning launches, "
+          f"{binned.get('raster.bins_entries', 0)} "
+          f"entries, {s1_dropped} dropped", flush=True)
+    assert torch.equal(kept, every), (kept.tolist(), every.tolist())
+    assert s1_dropped == 0, binned
+    bins_rec["s1 fused"] = check_bins("s1 fused render", fv1)
     sel = torch.linspace(0, S1_BATCH - 1, P2F_SLICE,
                          device=dev).round().long()
-    sl = slice_of(fused, sel, whole=True)
+    sl = slice_of(fused, sel)
     p2f_slice_ms, out = cuda_time(lambda: render_fwd(sl), 20)
     with torch.no_grad():
         p2f_plain_ms, ref = cuda_time(
             lambda: soft_rasterize(sl["fv"], sl["tex"], **pkw), 1, warmup=0)
     name = (f"s1 fused slice: {P2F_SLICE} images (images {sel.tolist()}, "
-            "on bins that drop nothing)")
+            "on the main path's bins)")
     fwd_slices["s1 fused"] = dict(compare(name, out, ref, False),
                                   images=sel.tolist(), ms=p2f_slice_ms,
                                   plain_ms=p2f_plain_ms)
@@ -3161,11 +3192,11 @@ def main():
         max_err = max(max_err, fwd_slices[label]["rgba"])
 
     # the backward at both s1 launches against the plain version, on the
-    # same slices' bins that drop nothing
+    # same slices' bins
     for label, seed in (("s1 fused", 10), ("s1 gan", 11)):
         slices[label] = check_slice(
             f"{label} slice: {P2F_SLICE} images (images {sel.tolist()}, on "
-            "bins that drop nothing)", slice_of(s1r[label], sel, whole=True),
+            "the main path's bins)", slice_of(s1r[label], sel),
             seed)
         bwd_err = max(bwd_err, slices[label]["max_abs"])
         bwd_rel = max(bwd_rel, slices[label]["max_rel"])
@@ -3318,7 +3349,7 @@ def main():
         "p2f_ms": ms_p2f, "p2f_bound_ms": b_p2f[0], "p2f_bound_by": b_p2f[1],
         "p2f_free_ms": ms_nop2f, "p2f_free_bound_ms": b_nop2f[0],
         "p2f_turns_ms": turns, "p2f_pair_counts": s1_counts,
-        "p2f_images_over_cap": s1_over,
+        "s1_entries_dropped": s1_dropped,
         "p2f_slice_ms": p2f_slice_ms, "p2f_slice_plain_ms": p2f_plain_ms,
         "p2f_slice_bound_ms": slice_bound[0],
         "s1_step_ms": s1_ms, "s1_images_per_s": s1_imgs,
@@ -3352,6 +3383,15 @@ def main():
         "ptxas": {k: v for k, v in usage.items()
                   if k.startswith("raster_fwd")},
     }, {
+        "name": "raster_bins", "route": "cuda", "source": BINS_SRC,
+        "replaces": None, "launches": {"s2 step": s2_binnings,
+                                       "s1 step": s1_binnings},
+        "max_abs_err": 0, "plain": "ops/raster_bins.py::_full_bins_plain",
+        "ms": {k: sum(v["ms"].values()) for k, v in bins_rec.items()},
+        "bound_ms": {k: sum(v["bound_ms"].values())
+                     for k, v in bins_rec.items()},
+        "bound_by": "bytes", "library_ms": None, "renders": bins_rec,
+    }, {
         "name": "raster_bwd", "route": "cuda", "source": BWD_SRC,
         "replaces": BWD_TPU_KERNEL, "launches": train_bwd,
         "s1_launches": s1_bwd,
@@ -3365,7 +3405,7 @@ def main():
         "merged_slice_bound_ms": slices["merged"]["bound"][0],
         "merged_slice_max_rel_err": slices["merged"]["max_rel"],
         "fold_ms": shapes["fold"]["bwd_ms"],
-        "fold_images_over_cap": shapes["fold"]["over_cap"],
+        "fold_entries": shapes["fold"]["entries"],
         "fold_bound_ms": shapes["fold"]["bwd_bound"][0],
         "fold_pair_counts": shapes["fold"]["counts"],
         "merged_ms": shapes["merged"]["bwd_ms"],

@@ -86,9 +86,10 @@ def test_step_renders_records_the_s1_step():
     fused, hard, gan = (got[k] for k in raster_bench.S1_RENDERS)
     assert fused["kw"]["need_p2f"] and fused["bwd"]["rgb_geom_detach"]
     assert hard["bwd"] is None
-    # the fused render and the hard pass share their bins
+    # the fused render and the hard pass draw the same faces: their full
+    # bins, made at each launch, are equal
     for a, b in zip(fused["bins"], hard["bins"]):
-        assert a is b
+        assert torch.equal(a, b)
     assert gan["bwd"]["mask_only"] and gan["kw"]["mask_only"]
     assert not gan["kw"]["need_p2f"]
 

@@ -43,7 +43,9 @@ Port module -> JAX counterpart (umr_tpu/...):
   ops/rasterize_bwd.py       ops/raster_kernel_bwd.py's math in plain torch:
                              the backward kernel's plain version
   ops/raster_bins.py         ops/rasterize_binned.py::_face_tile_cover,
-                             ops/raster_kernel.py::compute_raster_bins
+                             ops/raster_kernel.py::compute_raster_bins;
+                             full_raster_bins has no counterpart
+  csrc/raster_bins.cu        full_raster_bins on the card (new)
   csrc/raster_fwd.cu         ops/raster_kernel.py::_fwd_kernel (Pallas)
   csrc/raster_bwd.cu         ops/raster_kernel_bwd.py::_bwd_kernel (Pallas)
   csrc/raster_common.cuh     ops/raster_kernel.py::_pair_math
@@ -106,8 +108,10 @@ Parity traps the port reproduces:
   * BatchNorm: flax momentum 0.9 is torch's 0.1, eps 1e-5; eval uses the
     running statistics.
   * rasterizer: |det| <= 1e-10 faces are culled; hard-mode ties go to the
-    lowest face id; the per-tile cap and entry_cap truncate exactly as the
-    TPU kernel's binning does.
+    lowest face id; the main path's bins keep every face a tile reaches,
+    where the TPU kernel's caps drop some (ops/raster_bins.py);
+    compute_raster_bins truncates exactly as the TPU kernel's binning
+    does.
   * backward (kernel and plain): the reference CUDA semantics, not the
     derivative: a pair whose depth is outside [near, far] gives no
     gradient at all (zgate), dA/dD = (1 - A) / max(1 - D, 1e-6), the exp

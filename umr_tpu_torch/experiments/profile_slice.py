@@ -28,7 +28,7 @@ from ..mesh import build_template
 from ..models import MeshNet, init_weights, symmetrize
 from ..models.weights import WEIGHTS_DIR, load_resnet18_npz
 from ..ops import raster_kernel
-from ..ops.raster_bins import compute_raster_bins
+from ..ops.raster_bins import full_raster_bins
 from ..renderer import SoftRenderer, apply_lighting, surface_normals
 from . import demo, test_iou
 
@@ -202,17 +202,14 @@ def main(argv=None):
         verts = model.get_mean_shape()[None] + symmetrize(out["delta_v"],
                                                           template)
         fv = rend.project_faces(verts, faces, out["cam"]).contiguous()
-    S, F = rend.render_size, faces.shape[0]
-    cap = rend.resolved_mf_cap(F)
+    S = rend.render_size
 
     def step():
         gen.manual_seed(args.seed)
         return test_iou.predict_masks(model, rend, faces, x, generator=gen)
 
     def binning():
-        return compute_raster_bins(fv, S, raster_kernel.TILE_SIZE,
-                                   rend.sigma_val, rend.dist_eps, cap,
-                                   raster_kernel.MAX_COVER)
+        return full_raster_bins(fv, S, rend.sigma_val, rend.dist_eps)
 
     _, astarts = binning()
     per_tile = torch.diff(astarts, dim=1).float()
@@ -241,7 +238,7 @@ def main(argv=None):
     demo_kern, _ = trace_kernels(
         lambda: raster_kernel.soft_rasterize_fwd(
             fv1, tex1, image_size=S, aggr_func_rgb="hard",
-            background_color=vis.background_color, mf_cap=cap),
+            background_color=vis.background_color),
         args.trace_steps)
     demo_raster = [d for name, _, d in demo_kern if "raster_fwd" in name]
 

@@ -42,8 +42,8 @@ import torch
 from ..config import Config
 from ..data import synthetic_batch
 from ..mesh import build_template
-from ..ops import raster_kernel
-from ..ops.raster_bins import compute_raster_bins
+from ..ops import raster_bins, raster_kernel
+from ..ops.raster_bins import full_raster_bins
 from ..renderer import SoftRenderer
 from .raster_bound import block_steps, pair_counts, raster_bound
 
@@ -122,8 +122,10 @@ def step_renders(labels):
     maps labels[i] to the i-th render as dict(fv, tex, bins, kw = its
     soft_rasterize_fwd keywords, bwd = its backward's options, None for
     the hard body). The block must draw exactly len(labels) renders.
-    Where the plain versions took no bins (CPU tensors), bins are the
-    ones the card's route would compute."""
+    Where the caller gave no bins, bins are the full bins the launches
+    make (on the CPU, whose plain versions take none, the ones the card's
+    route would make), made again here and left out of
+    raster_bins.LAUNCHES."""
     got, out = [], {}
     function = raster_kernel._Raster
 
@@ -132,10 +134,11 @@ def step_renders(labels):
         def apply(fv, tex, al_fids, astarts, kw):
             bins = (al_fids, astarts)
             if al_fids is None:
-                bins = compute_raster_bins(
-                    fv.detach(), kw["S"], raster_kernel.TILE_SIZE,
-                    kw["sigma_val"], kw["dist_eps"], kw["mf_cap"],
-                    raster_kernel.MAX_COVER)
+                # the program's binnings are counted; the recorder's not
+                launches = raster_bins.LAUNCHES
+                bins = full_raster_bins(fv.detach(), kw["S"],
+                                        kw["sigma_val"], kw["dist_eps"])
+                raster_bins.LAUNCHES = launches
             got.append((fv.detach(), tex.detach(), bins, dict(kw)))
             return function.apply(fv, tex, al_fids, astarts, kw)
 

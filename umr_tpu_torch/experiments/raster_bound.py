@@ -8,7 +8,8 @@ conversion, exponential or atomic add; address arithmetic, the per-pixel
 set-up and write-out, the forward's rescale of its running softmax sums
 and the warp reductions left out), and charged only to the (pixel, binned
 face) pairs that reach the branch on this run's data, found with the plain
-version's pair arithmetic (pair_counts). Used by chip_smoke.py and
+version's pair arithmetic (pair_counts); bins_bound bounds the binning
+kernels by their bytes alone. Used by chip_smoke.py and
 raster_bench.py.
 """
 
@@ -145,7 +146,9 @@ def raster_bound(counts, fv, tex, bins, S, opts=None, p2f=False,
     under opts, from its pair_counts."""
     _, box, passed, in_depth = counts
     ops = box * (OPS_BOX + OPS_DIST) + passed * OPS_FRAG
-    inputs = 4 * (fv.numel() + tex.numel() + bins[0].numel()
+    # the entries the tiles' ranges hold (full bins leave the rest of
+    # their worst-case array unread)
+    inputs = 4 * (fv.numel() + tex.numel() + int(bins[1][:, -1].sum())
                   + bins[1].numel())
     img = 4 * fv.shape[0] * S * S * (4 + 2)            # rgba, aggr
     if opts is None:
@@ -166,3 +169,20 @@ def raster_bound(counts, fv, tex, bins, S, opts=None, p2f=False,
     # reads the forward's outputs and g_rgba, writes the gradients
     return bound(ops, inputs + img + 4 * fv.shape[0] * S * S * 4
                  + 4 * (fv.numel() + tex.numel()))
+
+
+def bins_bound(bins, F):
+    """{kernel: (bound ms, "bytes")} of the binning kernels
+    (csrc/raster_bins.cu) that made full bins (al_fids, astarts) of F
+    faces a render, each input read once and each output written once:
+    bins_count_kernel reads each face's x and y (24 bytes) and writes its
+    packed tile rectangle (4) and the tiles' counts (4 a tile);
+    bins_fill_kernel reads the rectangles and counts and writes the
+    starts (4 a tile and the image's end) and the padded entries (4
+    each)."""
+    B, T = bins[1].shape[0], bins[1].shape[1] - 1
+    padded = int(bins[1][:, -1].sum())
+    count = B * (F * (24 + 4) + 4 * T)
+    fill = B * (F * 4 + 4 * T + 4 * (T + 1)) + 4 * padded
+    return {"bins_count_kernel": bound(0, count),
+            "bins_fill_kernel": bound(0, fill)}

@@ -163,13 +163,12 @@ class PartMatchingLoss:
         return torch.cat(chans, dim=-1).permute(0, 3, 1, 2)
 
     def __call__(self, verts, faces, cams, part_segs, cam_probs=None,
-                 avg=True, bins=None):
-        """part_segs: [B, num_parts+1, H, W] normalised part maps; bins:
-        the shared face -> tile bins of this geometry (kernels' route).
+                 avg=True):
+        """part_segs: [B, num_parts+1, H, W] normalised part maps.
         Returns (loss, projs [B,num_parts,H,W])."""
         rgb_groups = [
             self.renderer.render(verts, faces, cams, sub.detach(),
-                                 tex_grads=False, bins=bins).rgba[..., :3]
+                                 tex_grads=False).rgba[..., :3]
             for sub in self.texture_groups(verts.shape[0])]
         projs = self.projs_from_group_renders(rgb_groups)
         return self.loss_from_projs(projs, part_segs, cam_probs, avg)

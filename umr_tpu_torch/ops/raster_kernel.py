@@ -4,20 +4,24 @@ with its p2f side output) and backward (csrc/raster_bwd.cu, replacing umr_tpu/op
 raster_kernel_bwd.py::_bwd_kernel), joined by a torch.autograd.Function
 (the counterpart of umr_tpu/ops/raster_kernel.py::_pallas_raster_vjp).
 
-On a CUDA tensor, soft_rasterize_fwd bins the faces (ops/raster_bins.py)
-unless given bins, launches the forward kernel, and its backward launches
-the backward kernel over the same bins; neither falls back. On a CPU
-tensor the Function runs the kernels' plain versions,
+On a CUDA tensor, soft_rasterize_fwd launches the forward kernel and its
+backward the backward kernel, over the bins the caller gives or else over
+full bins (ops/raster_bins.py::full_raster_bins: every face a tile
+reaches). Full bins are made at each launch, forward and backward, and
+not kept between them: their entry array is sized for the worst case,
+and kept it would stand through the whole step. Neither falls back. On a
+CPU tensor the Function runs the kernels' plain versions,
 ops/rasterize.py::soft_rasterize and ops/rasterize_bwd.py::
 soft_rasterize_bwd, so the CPU tests drive the card's gradient route.
 Where p2f is asked for, the plain forward runs one face per chunk, so
 that its p2f follows the kernel's rule (each pair weighted by the pixel's
 running max after that face; see ops/rasterize.py).
 
-The kernels are built at first use with nvcc into umr_tpu_torch/build/,
-one compiler per source, all started together, linked into one shared
-library with a plain C interface loaded through ctypes, keyed by a hash of
-the sources and flags. A missing nvcc or a failed build raises.
+The kernels, with the binning kernels of csrc/raster_bins.cu, are built
+at first use with nvcc into umr_tpu_torch/build/, one compiler per
+source, all started together, linked into one shared library with a
+plain C interface loaded through ctypes, keyed by a hash of the sources
+and flags. A missing nvcc or a failed build raises.
 """
 
 from __future__ import annotations
@@ -33,7 +37,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from .raster_bins import compute_raster_bins
+from .raster_bins import TILE_SIZE, full_entries, full_raster_bins
 from .rasterize import (EPS, FAR, NEAR, RasterOut, normalize_p2f,
                         soft_rasterize, threshold_of)
 from .rasterize_bwd import soft_rasterize_bwd
@@ -47,9 +51,10 @@ ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH + ("-O3", "-std=c++17", "--fmad=false", "-Xcompiler",
                      "-fPIC", "-Xptxas", "-v")
 
-# the kernels' tile (32x32 pixels, 256 threads of 4 pixels), and the
-# bins' bound on the tiles a face's bbox spans per axis
-TILE_SIZE = 32
+# the kernels' tile is TILE_SIZE (32x32 pixels, 256 threads of 4
+# pixels); MAX_COVER is the JAX package's bound on the tiles a face's bbox
+# spans per axis, for compute_raster_bins with its caps (the tools that
+# compare with its layout)
 MAX_COVER = 4
 
 # kernel launches made by the forward and the backward wrapper, and the
@@ -121,6 +126,10 @@ def build_library(csrc, build_dir):
     lib.umr_raster_bwd.argtypes = (
         [vp] * 9 + [ci] * 6 + [cf] * 10 + [ci] * 3 + [vp])
     lib.umr_raster_bwd.restype = ci
+    if hasattr(lib, "umr_raster_bins"):     # trees before the bins kernel
+        lib.umr_raster_bins.argtypes = (
+            [vp] * 5 + [ci] * 4 + [cf] + [vp] * 2)
+        lib.umr_raster_bins.restype = ci
     lib.umr_cuda_error_string.argtypes = [ci]
     lib.umr_cuda_error_string.restype = ctypes.c_char_p
     return lib, log
@@ -228,9 +237,10 @@ def _raise_on(lib, err, what):
 
 
 def _check_bins(bins, B, S, dev):
-    """Bins of compute_raster_bins at image size S (any max_cover,
-    mf_cap and entry_cap: the kernels read the entry count from
-    al_fids); returns the entries per image."""
+    """Bins of full_raster_bins, or of compute_raster_bins with any
+    max_cover, mf_cap and entry_cap (the kernels read each tile's entry
+    count from astarts), at image size S; returns the entries per
+    image."""
     E_al = bins[0].shape[-1]
     _check(bins[0], "al_fids", (B, E_al), torch.int32, dev)
     _check(bins[1], "astarts", (B, (S // TILE_SIZE) ** 2 + 1), torch.int32,
@@ -321,18 +331,29 @@ def raster_bwd(fv, tex, bins, rgba, aggr, g_rgba, S, sigma_val, dist_eps,
     return grad_fv, grad_tex
 
 
+def _bins_of(fv, al_fids, astarts, kw):
+    """The bins a launch walks: the caller's, or else (CUDA tensors) the
+    full bins made now; the plain versions (CPU) take none."""
+    if al_fids is not None:
+        return al_fids, astarts
+    if not fv.is_cuda:
+        return None, None
+    return full_raster_bins(fv, kw["S"], kw["sigma_val"], kw["dist_eps"])
+
+
 class _Raster(torch.autograd.Function):
     """Forward kernel + backward kernel (plain versions on the CPU).
     Gradients go to the faces and texels; the bins get none, and aggr and
     p2f are outputs without gradients. The backward reuses the forward's
-    bins, rgba (at render size) and aggr."""
+    rgba (at render size) and aggr, and the caller's bins or else full
+    bins made again from the same faces (the same entries)."""
 
     @staticmethod
     def forward(ctx, fv, tex, al_fids, astarts, kw):
         if fv.is_cuda:
             rgba, aggr, p2f = _launch_fwd(
-                fv, tex, (al_fids, astarts), kw["S"], kw["bg"],
-                kw["sigma_val"], kw["dist_eps"], kw["gamma_val"],
+                fv, tex, _bins_of(fv, al_fids, astarts, kw), kw["S"],
+                kw["bg"], kw["sigma_val"], kw["dist_eps"], kw["gamma_val"],
                 kw["mf_cap"], kw["hard"], kw["mask_only"], kw["need_p2f"])
         else:
             # one face per chunk where p2f is read: the kernel's rule
@@ -357,9 +378,10 @@ class _Raster(torch.autograd.Function):
             # hard RGB is a forward-only visibility pass: no backward
             return torch.zeros_like(fv), torch.zeros_like(tex), None, None, None
         gfv, gtex = raster_bwd(
-            fv, tex, (al_fids, astarts), rgba, aggr, g_rgba, kw["S"],
-            kw["sigma_val"], kw["dist_eps"], kw["gamma_val"], kw["mf_cap"],
-            kw["mask_only"], kw["rgb_geom_detach"], kw["tex_grads"])
+            fv, tex, _bins_of(fv, al_fids, astarts, kw), rgba, aggr, g_rgba,
+            kw["S"], kw["sigma_val"], kw["dist_eps"], kw["gamma_val"],
+            kw["mf_cap"], kw["mask_only"], kw["rgb_geom_detach"],
+            kw["tex_grads"])
         return gfv, gtex, None, None, None
 
 
@@ -372,7 +394,7 @@ def soft_rasterize_fwd(
     dist_eps=1e-10,
     gamma_val=1e-4,
     aggr_func_rgb="softmax",
-    mf_cap=256,
+    mf_cap=None,
     need_p2f=False,
     mask_only=False,
     rgb_geom_detach=False,
@@ -383,20 +405,20 @@ def soft_rasterize_fwd(
     distance, product alpha, surface textures; softmax or hard RGB).
 
     face_vertices [B, F, 3, 3] float32; textures [B, F, T2, 3] or None.
-    Same contract as ops/rasterize.py::soft_rasterize, plus mf_cap, the
-    faces kept per 32x32 tile (as umr_tpu's soft_rasterize_pallas with
-    tile_size=32, max_cover=4 and its default entry_cap); image_size is a
+    Same contract as ops/rasterize.py::soft_rasterize; image_size is a
     multiple of 32. Differentiable with the reference CUDA backward's
     semantics (ops/rasterize_bwd.py): rgb_geom_detach sends rgb gradients
     to the texels only, tex_grads=False gives the texels none (for
     textures the caller does not differentiate), hard mode has no
-    backward. bins: (al_fids, astarts) of compute_raster_bins at this
-    image_size and mf_cap, shared by renders of the same projected faces;
-    computed here when None (with MAX_COVER and the default entry cap;
-    bins with larger caps drop fewer faces). Returns RasterOut; p2f is the per-face
-    expected image coordinate under need_p2f (softmax; it carries no
-    gradient, and a face's entries past mf_cap in a tile are dropped, as
-    on the TPU), else zeros.
+    backward. bins: (al_fids, astarts) at this image_size, of
+    full_raster_bins or of compute_raster_bins with the JAX package's
+    caps (a tool that holds the kernels to its layout); when None, the
+    full bins, made at the forward's launch and again at the backward's,
+    so that every face a tile reaches is rendered. mf_cap bounds the
+    entries the kernels walk per tile (None: every entry; the JAX
+    package's soft_rasterize_pallas pairs it with its bins' cap). Returns
+    RasterOut; p2f is the per-face expected image coordinate under
+    need_p2f (softmax; it carries no gradient), else zeros.
     """
     if aggr_func_rgb not in ("softmax", "hard"):
         raise ValueError(f"aggr_func_rgb={aggr_func_rgb!r}")
@@ -407,11 +429,10 @@ def soft_rasterize_fwd(
                          f"{TILE_SIZE}-pixel tile")
     if textures is None:
         textures = face_vertices.new_ones((B, F, 1, 3))
-    if bins is None and face_vertices.is_cuda:
-        bins = compute_raster_bins(face_vertices, S, TILE_SIZE, sigma_val,
-                                   dist_eps, mf_cap, MAX_COVER)
-    # the plain versions (CPU) render every face: they take no bins
     al_fids, astarts = (None, None) if bins is None else bins
+    if mf_cap is None:
+        # a tile of any bins holds at most every face, padded to GROUP
+        mf_cap = full_entries(F, 1)
     hard = aggr_func_rgb == "hard"
     kw = dict(S=S, bg=tuple(background_color)[:3]
               + (0.0,) * (3 - len(background_color)),

@@ -8,11 +8,12 @@ average-pool).
 
 Routing (the JAX package's `impl`): under "auto" a CUDA tensor takes the
 kernels' autograd Function (ops/raster_kernel.py: forward kernel,
-backward kernel with the reference CUDA gradient semantics) and a CPU
-tensor the plain forward (ops/rasterize.py) under torch autograd, exact
-AD, as the JAX package's XLA paths. "kernel" takes the Function on the
-CPU too (through the kernels' plain versions), so that CPU tests drive
-the card's route.
+backward kernel with the reference CUDA gradient semantics, on bins that
+keep every face a tile reaches, where the JAX package's caps drop some:
+ops/raster_bins.py) and a CPU tensor the plain forward (ops/rasterize.py) under
+torch autograd, exact AD, as the JAX package's XLA paths. "kernel"
+takes the Function on the CPU too (through the kernels' plain versions),
+so that CPU tests drive the card's route.
 """
 
 from __future__ import annotations
@@ -22,8 +23,8 @@ import dataclasses
 import torch
 
 from ..ops.projection import orthographic_proj_withz
-from ..ops.raster_bins import compute_raster_bins
-from ..ops.raster_kernel import MAX_COVER, TILE_SIZE, soft_rasterize_fwd
+from ..ops.raster_bins import TILE_SIZE, full_raster_bins
+from ..ops.raster_kernel import soft_rasterize_fwd
 from ..ops.rasterize import RasterOut, soft_rasterize
 
 
@@ -83,10 +84,11 @@ class SoftRenderer:
         return torch.device(device).type == "cuda" or self.impl == "kernel"
 
     def resolved_mf_cap(self, num_faces):
-        """The kernel's per-tile face cap, sized as the JAX package sizes
-        its kernel's: per-tile face density scales with F * ts^2 / S^2
-        (x32 for 2x headroom), floor 256, ceiling 1024, at most F, then
-        rounded up to a multiple of 32."""
+        """The JAX package's per-tile face cap for these renders, for the
+        tools that hold the kernels to its capped layout (the renders
+        themselves cap nothing): per-tile face density scales with F *
+        ts^2 / S^2 (x32 for 2x headroom), floor 256, ceiling 1024, at most
+        F, then rounded up to a multiple of 32."""
         S = self.render_size
         cap = -(-32 * num_faces * TILE_SIZE * TILE_SIZE // (S * S))
         cap = min(num_faces, min(max(256, cap), 1024))
@@ -106,14 +108,15 @@ class SoftRenderer:
         return verts[:, faces.long()]
 
     def compute_bins(self, vertices, faces, cams):
-        """The kernels' face -> tile bins of this render, computed once so
-        that renders of the same projected geometry share them; valid for
-        any renderer that agrees on image_size, anti_aliasing, sigma_val,
-        dist_eps, eye and offset_z."""
+        """The face -> tile bins that render() walks on the kernels' route
+        (ops/raster_bins.py::full_raster_bins: every face a tile reaches),
+        for a caller that shares them between renders of the same
+        projected geometry; valid for any renderer that agrees on
+        image_size, anti_aliasing, sigma_val, dist_eps, eye and
+        offset_z."""
         fv = self.project_faces(vertices.detach(), faces, cams.detach())
-        return compute_raster_bins(
-            fv, self.render_size, TILE_SIZE, self.sigma_val, self.dist_eps,
-            self.resolved_mf_cap(fv.shape[1]), MAX_COVER)
+        return full_raster_bins(fv, self.render_size, self.sigma_val,
+                                self.dist_eps)
 
     def render(self, vertices, faces, cams, textures=None, mask_only=False,
                rgb_geom_detach=False, tex_grads=True, bins=None,
@@ -125,7 +128,8 @@ class SoftRenderer:
         gradient on the kernels' route.
 
         mask_only, rgb_geom_detach, tex_grads and bins act on the kernels'
-        route (ops/raster_kernel.py::soft_rasterize_fwd); the plain route
+        route (ops/raster_kernel.py::soft_rasterize_fwd, which bins the
+        faces itself when bins is None); the plain route
         renders every face in chunks of face_chunk and differentiates
         exactly, and reads mask_only and need_p2f only."""
         fv = self.project_faces(vertices, faces, cams).contiguous()
@@ -146,9 +150,8 @@ class SoftRenderer:
                   mask_only=mask_only, need_p2f=need_p2f)
         if self.uses_kernel(fv.device):
             out = soft_rasterize_fwd(
-                fv, textures, mf_cap=self.resolved_mf_cap(fv.shape[1]),
-                rgb_geom_detach=rgb_geom_detach, tex_grads=tex_grads,
-                bins=bins, **kw)
+                fv, textures, rgb_geom_detach=rgb_geom_detach,
+                tex_grads=tex_grads, bins=bins, **kw)
         else:
             out = soft_rasterize(fv, textures, face_chunk=self.face_chunk,
                                  **kw)

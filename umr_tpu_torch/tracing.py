@@ -3,6 +3,7 @@
   with span("trainer.prep"):
       ...
   count("trainer.h2d_bytes", n)
+  device_counter("raster.bins_entries", dev).add_(n_on_device)
 
 A span always opens a torch.profiler range of its name (so a trace of the
 program splits its device time by span) and always adds its host seconds
@@ -11,6 +12,11 @@ update). While recording is on it also keeps a record (name, the name of
 the span open around it on this thread or None, start, end). totals()
 reads the totals and counters, delta() the change between two readings,
 current() the innermost open span; nothing is written to disk.
+
+A counter the device feeds (device_counter: an int64 tensor on that
+device, which kernels and tensor ops add to in place) costs the step no
+host sync; totals() reads it back, which waits for the device, so call
+totals() outside a step.
 
 stop_recording() returns the records with their start and end as
 wall-clock microseconds: the clock of a torch.profiler Chrome trace once
@@ -24,10 +30,12 @@ from __future__ import annotations
 import threading
 import time
 
+import torch
 from torch.profiler import record_function
 
 _spans = {}           # name -> [nanoseconds, calls]
 _counters = {}        # name -> amount
+_device_counters = {}  # (name, device) -> int64 [1] tensor on the device
 _records = None       # [(name, parent, start_ns, end_ns)] while recording
 _anchor = None        # (time.time_ns(), time.perf_counter_ns())
 _open = threading.local()
@@ -50,8 +58,11 @@ class span:
         self._parent = stack[-1] if stack else None
         stack.append(self.name)
         self._range = record_function(self.name)
-        self._range.__enter__()
+        # The range's timestamp is taken early in __enter__, whose first
+        # call in a process can then spend a millisecond more (torch's
+        # lazy set-up), so the record starts where the range does.
         self._t0 = time.perf_counter_ns()
+        self._range.__enter__()
         return self
 
     def __exit__(self, *exc):
@@ -81,13 +92,30 @@ def count(name, n=1):
         _counters[name] = _counters.get(name, 0) + n
 
 
+def device_counter(name, device):
+    """The int64 [1] tensor on `device` that adds to the counter `name`:
+    add to it in place (a kernel through its pointer, or add_), and
+    totals() counts it with what count() added under the same name."""
+    key = (name, torch.device(device))
+    with _lock:
+        acc = _device_counters.get(key)
+        if acc is None:
+            acc = _device_counters[key] = torch.zeros(
+                1, dtype=torch.int64, device=device)
+        return acc
+
+
 def totals():
     """{"seconds": {span: s}, "calls": {span: n}, "counters": {name: n}}
-    since the process began (or the last reset())."""
+    since the process began (or the last reset()); reading the device's
+    counters waits for their devices."""
     with _lock:
+        counters = dict(_counters)
+        for (name, _), acc in _device_counters.items():
+            counters[name] = counters.get(name, 0) + int(acc.item())
         return {"seconds": {k: v[0] / 1e9 for k, v in _spans.items()},
                 "calls": {k: v[1] for k, v in _spans.items()},
-                "counters": dict(_counters)}
+                "counters": counters}
 
 
 def delta(before, after=None):
@@ -123,4 +151,5 @@ def reset():
     with _lock:
         _spans.clear()
         _counters.clear()
+        _device_counters.clear()
         _records = None

@@ -14,24 +14,24 @@ uses batch statistics in train mode (running stats at momentum 0.1, the
 flax 0.9).
 
 The rasterizer passes of one stage-2 step, on the kernels' route (ops/
-raster_kernel.py; the card, or the CPU with impl="kernel"):
+raster_kernel.py; the card, or the CPU with impl="kernel"), each on the
+full bins it makes at its launches (ops/raster_bins.py::full_raster_bins,
+at the forward's and again at the backward's: none is kept through the
+step):
   1. the fused silhouette + texture render of the B*K hypothesis fold,
      rgb gradients to the texels only: forward and backward kernel;
-  2. the hard visibility render at the sampled camera, forward only,
-     on `main_bins`, the step's one binning of that geometry;
+  2. the hard visibility render at the sampled camera, forward only;
   3. the semantic part renders and the GAN's unseen view merged into one
-     (n_groups + 1) * B render with constant textures (tex_grads=False),
-     on main_bins repeated and the unseen view's own bins: forward and
-     backward kernel.
+     (n_groups + 1) * B render with constant textures (tex_grads=False):
+     forward and backward kernel.
 With cycle_soft_p2f a fourth, forward-only pass ("s2.pass2_p2f")
-renders the textures at the sampled camera for their p2f (on main_bins),
-the texture-cycle target in place of the hard render's all-zero p2f.
+renders the textures at the sampled camera for their p2f, the
+texture-cycle target in place of the hard render's all-zero p2f.
 
 The passes of one stage-1 step on the kernels' route:
   1. the fused seen-mask + texture render at the predicted camera, with
      p2f, rgb gradients to the texels only: forward (p2f) and backward;
-  2. the hard visibility render (face ids), forward only; 1 and 2 share
-     one binning of the geometry;
+  2. the hard visibility render (face ids), forward only;
   3. the GAN's unseen view, mask only: forward and backward kernel.
 On the plain route (CPU, impl="auto") the renders are the plain forward
 under exact autograd, unmerged, as the JAX package's XLA paths; stage 1
@@ -42,12 +42,11 @@ The flag variants, as the JAX package's steps have them:
   * use_texture=False: no texture flow, LPIPS, dt, cycle or hard pass.
     Stage 2's pass 1 is the mask-only hypothesis fold (multi_mask_loss,
     "s2.pass1_fold"), its GAN view renders T2=1 ones ("s2.pass3_gan")
-    and its part groups render apart on main_bins ("s2.pass3_parts",
-    where main_bins is also computed); stage 1's pass 1 is a mask-only
-    seen render ("s1.pass1_mask").
+    and its part groups render apart ("s2.pass3_parts"); stage 1's pass
+    1 is a mask-only seen render ("s1.pass1_mask").
   * use_gan=False: no unseen view and no GAN loss (the discriminator is
-    kept, with no gradient); stage 2's part groups render apart on
-    main_bins ("s2.pass3_parts").
+    kept, with no gradient); stage 2's part groups render apart
+    ("s2.pass3_parts").
   * bf16: the convs of the encoder, the texture decoder and LPIPS in
     bfloat16 (models/net_blocks.py); nothing bfloat16 reaches a render.
   * az_ele_quat: the hypotheses' QuatHeadAzEle (models/heads.py).
@@ -112,12 +111,6 @@ from ..parallel import all_reduce_, rank_block, shard_batch, world_size
 from ..renderer import SoftRenderer
 from ..tracing import span
 
-# settings that decide a render's bins: renders that agree on them can
-# share one binning
-_BIN_FIELDS = ("image_size", "anti_aliasing", "sigma_val", "dist_eps", "eye",
-               "offset_z")
-
-
 @dataclasses.dataclass
 class TrainState:
     step: int                        # batches taken
@@ -163,10 +156,6 @@ def _compute_dtype(cfg: Config):
     compute in bfloat16; parameters, BatchNorm, the heads, the losses and
     the rasterizer stay float32 (models/net_blocks.py)."""
     return torch.bfloat16 if cfg.bf16 else None
-
-
-def _same_bins(a, b):
-    return all(getattr(a, f) == getattr(b, f) for f in _BIN_FIELDS)
 
 
 def normalize_part_segs(part_prob, masks):
@@ -310,19 +299,15 @@ def build_s2_step(cfg: Config, template, part_loss: PartMatchingLoss,
     faces = torch.as_tensor(template.faces, device=device)
     lap = torch.as_tensor(template.laplacian, device=device)
     flat_idx = torch.as_tensor(template.flatten_idx, device=device)
-    pr = part_loss.renderer
-    part_bins_ok = _same_bins(pr, hard_renderer)
-    # the merged part + GAN render draws the part groups with dis_renderer
-    # on hard_renderer's bins: the part renderer must render as
-    # dis_renderer does, and all three must bin alike
-    part_render_eq = (part_bins_ok and pr == dis_renderer
-                      and _same_bins(hard_renderer, dis_renderer))
-    tex_bins_ok = _same_bins(tex_renderer, hard_renderer)
     init_fn = _make_init_fn(cfg, model, disc, lpips, device)
     # pass 3's ranges: with every flag at its default the part groups and
     # the GAN's view are one merged pass (two renders off the kernels'
     # route); a variant renders them apart
     default = cfg.use_texture and cfg.use_gan
+    # the merged part + GAN render draws the part groups with
+    # dis_renderer: the part renderer must render as it does
+    merge_pass3 = (default and part_loss.renderer == dis_renderer
+                   and dis_renderer.uses_kernel(device))
     gan_range = "s2.pass3_merged" if default else "s2.pass3_gan"
     part_range = "s2.pass3_merged" if default else "s2.pass3_parts"
 
@@ -341,16 +326,6 @@ def build_s2_step(cfg: Config, template, part_loss: PartMatchingLoss,
         K = cams_all.shape[1]
 
         sc = {"cam_div_loss": cam_diversity_loss(cam_probs)}
-        # pass 2 and the part renders of pass 3 draw the same geometry at
-        # proj_cam: bin it once (kernels' route only; plain renders every
-        # face)
-        main_bins = None
-        if hard_renderer.uses_kernel(device):
-            with span("s2.pass2_hard" if cfg.use_texture
-                                 else part_range):
-                main_bins = hard_renderer.compute_bins(pred_vs, faces,
-                                                       proj_cam)
-
         tex = None
         if cfg.use_texture:
             tex_flow = outputs["tex_flow"]
@@ -397,7 +372,7 @@ def build_s2_step(cfg: Config, template, part_loss: PartMatchingLoss,
             # from the hard renderer, which writes no p2f)
             with span("s2.pass2_hard"):
                 hard_out = hard_renderer.render(pred_vs.detach(), faces,
-                                                proj_cam, bins=main_bins)
+                                                proj_cam)
             face_ids = hard_out.aggr[:, 1].reshape(B, -1)
             cycle_p2f = hard_out.p2f
             if cfg.cycle_soft_p2f:
@@ -406,8 +381,7 @@ def build_s2_step(cfg: Config, template, part_loss: PartMatchingLoss,
                 with span("s2.pass2_p2f"):
                     cycle_p2f = tex_renderer.render(
                         pred_vs.detach(), faces, proj_cam, tex.detach(),
-                        need_p2f=True, tex_grads=False,
-                        bins=main_bins if tex_bins_ok else None).p2f
+                        need_p2f=True, tex_grads=False).p2f
             sc["tex_cycle_loss"] = tex_cycle_loss(
                 tex_flow, cycle_p2f.detach(), face_ids.detach())[0]
             sc["uv_flow_area"] = uv_flow_area(outputs["uvimage_pred"])
@@ -424,26 +398,22 @@ def build_s2_step(cfg: Config, template, part_loss: PartMatchingLoss,
                     device=device), B)
             random_cams = rotate_cam(proj_cam, angles)
         # pass 3: the part groups and the GAN's unseen view in one render
-        if default and main_bins is not None and part_render_eq:
+        if merge_pass3:
             with span("s2.pass3_merged"):
                 groups = part_loss.texture_groups(B)
                 n_g = len(groups)
-                gan_bins = dis_renderer.compute_bins(pred_vs, faces,
-                                                     random_cams)
-                bins_cat = tuple(torch.cat([m] * n_g + [g], 0)
-                                 for m, g in zip(main_bins, gan_bins))
                 rgb = dis_renderer.render(
                     torch.cat([pred_vs] * (n_g + 1), 0), faces,
                     torch.cat([proj_cam] * n_g + [random_cams], 0),
                     torch.cat(groups + [tex.detach()], 0),
-                    tex_grads=False, bins=bins_cat).rgba[..., :3]
+                    tex_grads=False).rgba[..., :3]
                 projs = part_loss.projs_from_group_renders(
                     [rgb[i * B:(i + 1) * B] for i in range(n_g)])
                 unseen = rgb[n_g * B:]
                 p_loss = part_loss.loss_from_projs(projs, part_segs)[0]
         else:
             # apart: the GAN's view (untextured: T2=1 ones), then each
-            # part group on main_bins
+            # part group
             if cfg.use_gan:
                 with span(gan_range):
                     unseen = dis_renderer.render(
@@ -451,9 +421,8 @@ def build_s2_step(cfg: Config, template, part_loss: PartMatchingLoss,
                         None if tex is None else tex.detach(),
                         tex_grads=False).rgba[..., :3]
             with span(part_range):
-                p_loss = part_loss(pred_vs, faces, proj_cam, part_segs,
-                                   bins=main_bins if part_bins_ok
-                                   else None)[0]
+                p_loss = part_loss(pred_vs, faces, proj_cam,
+                                   part_segs)[0]
 
         if cfg.use_gan:
             sc["gan_loss"], sc["acc_gan"] = gan_loss(
@@ -516,7 +485,6 @@ def build_s1_step(cfg: Config, template, device=None, impl="auto"):
     lap = torch.as_tensor(template.laplacian, device=device)
     flat_idx = torch.as_tensor(template.flatten_idx, device=device)
     fused = cfg.use_texture and tex_renderer.uses_kernel(device)
-    share_bins = fused and _same_bins(tex_renderer, hard_renderer)
     init_fn = _make_init_fn(cfg, model, disc, lpips, device)
 
     def loss_fn(state: TrainState, batch, draws, epoch):
@@ -534,19 +502,15 @@ def build_s1_step(cfg: Config, template, device=None, impl="auto"):
             T = tex.shape[2]
             tex = tex.reshape(B, tex.shape[1], T * T, 3)
 
-        main_bins = None
         with span("s1.pass1_fused" if cfg.use_texture
                              else "s1.pass1_mask"):
-            if share_bins:
-                main_bins = hard_renderer.compute_bins(pred_vs, faces,
-                                                       proj_cam)
             if fused:
                 # one pass: live silhouette, rgb gradients to the texels
                 # only (the reference detaches geometry and camera in its
                 # texture render), p2f for the cycle loss
                 tex_out = tex_renderer.render(
                     pred_vs, faces, proj_cam, tex, need_p2f=True,
-                    rgb_geom_detach=True, bins=main_bins)
+                    rgb_geom_detach=True)
                 mask_pred_seen = tex_out.rgba[..., 3]
             else:
                 mask_pred_seen = renderer.render(
@@ -580,8 +544,7 @@ def build_s1_step(cfg: Config, template, device=None, impl="auto"):
                                                 batch["dts_barrier"])
             with span("s1.pass2_hard"):
                 hard_out = hard_renderer.render(
-                    pred_vs.detach(), faces, proj_cam.detach(),
-                    bins=main_bins)
+                    pred_vs.detach(), faces, proj_cam.detach())
             face_ids = hard_out.aggr[:, 1].reshape(B, -1)
             sc["tex_cycle_loss"] = tex_cycle_loss(
                 tex_flow, tex_out.p2f.detach(), face_ids.detach())[0]
